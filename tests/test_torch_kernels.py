@@ -1,0 +1,209 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+Each kernel wrapper of ssrlcv_tpu_torch takes its plain PyTorch version for
+CPU tensors; these tests hold that plain version against the JAX function it
+replaces on identical numpy-seeded inputs (the Pallas kernels run in
+interpret mode, as the JAX package's own tests run them).
+test_torch_cuda.py holds the CUDA kernels against the same plain versions on
+a card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_cuda import _H, _K, _W, _WMAX, _match_case, _orient_inputs, _plane
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("jax_form", ["gather", "pallas_interpret"])
+def test_orientation_plain_matches_jax(jax_form):
+    """K1's plain version vs _histogram_for_keypoints: its gather form and
+    the Pallas kernel in interpret mode.  Tolerance rtol 2e-5 / atol 1e-6:
+    float32 sums over up to 625 samples in another order."""
+    from ssrlcv_tpu.config import SIFTParams
+    from ssrlcv_tpu.features.orientation import _histogram_for_keypoints
+    from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+
+    lam = SIFTParams().orientation_contrib_width
+    grads, loc, sigma = _orient_inputs()
+    blur = jnp.ones((_K,), jnp.int32)
+    mask = jnp.ones((_K,), bool)
+    if jax_form == "gather":
+        ref, _ = _histogram_for_keypoints(jnp.asarray(grads), blur, jnp.asarray(loc),
+                                          jnp.asarray(sigma), mask, 1.0, lam, _WMAX)
+    else:
+        ref, _ = _histogram_for_keypoints(jnp.asarray(grads[1]), blur, jnp.asarray(loc),
+                                          jnp.asarray(sigma), mask, 1.0, lam, _WMAX,
+                                          use_kernel=True)
+    gx, gy = _plane(grads)
+    got = orientation_histograms(gx, gy, torch.from_numpy(loc), torch.from_numpy(sigma),
+                                 1.0, _WMAX, lam)
+    assert got.shape == (_K, 36)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=1e-6)
+
+
+def test_descriptor_plain_matches_jax_gather():
+    """K2's plain version + epilogue vs fill_descriptors' gather form, on
+    uint8 descriptors: within 1, because the histogram sums run in another
+    order (torch's batched product vs XLA's dot) and a value sitting on a
+    .5 quantisation boundary may round either way."""
+    from ssrlcv_tpu.config import SIFTParams
+    from ssrlcv_tpu.features.descriptor import fill_descriptors
+    from ssrlcv_tpu.features.detector import SSKeyPoints
+    from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.descriptor import descriptor_epilogue
+
+    rng = np.random.default_rng(7)
+    params = SIFTParams()
+    grads = rng.standard_normal((3, _H, _W, 2)).astype(np.float32)
+    loc = rng.uniform(_WMAX + 4, 300, (_K, 2)).astype(np.float32)
+    sigma = rng.uniform(1.0, 2.0, (_K,)).astype(np.float32)
+    theta = rng.uniform(0, 2 * np.pi, (_K,)).astype(np.float32)
+    kps = SSKeyPoints(blur=jnp.ones((_K,), jnp.int32), loc=jnp.asarray(loc),
+                      intensity=jnp.zeros((_K,), jnp.float32), sigma=jnp.asarray(sigma),
+                      theta=jnp.asarray(theta), mask=jnp.ones((_K,), bool))
+    ref, _ = fill_descriptors(jnp.asarray(grads), kps, 1.0, params, w_max=_WMAX)
+
+    gx, gy = _plane(grads)
+    raw = descriptor_histograms(gx, gy, torch.from_numpy(loc), torch.from_numpy(theta),
+                                torch.from_numpy(sigma), 1.0,
+                                params.descriptor_contrib_width, _WMAX)
+    got = descriptor_epilogue(raw, torch.ones(_K, dtype=torch.bool))
+    diff = np.abs(got.numpy().astype(int) - np.asarray(ref).astype(int))
+    assert diff.max() <= 1, diff.max()
+    assert (diff == 0).mean() > 0.99
+
+
+def test_best_target_plain_matches_jax_chunked():
+    """K3's plain version vs best_target_chunked + _epipolar_segment_mask
+    (constrained rows) and best_target_chunked alone (unconstrained rows):
+    indices and distances identical."""
+    from ssrlcv_tpu.matching.distance import best_target_chunked
+    from ssrlcv_tpu.matching.match import _epipolar_segment_mask
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+
+    eps = 25.0
+    q, t, t_loc, p1, p2, t_valid, unc = _match_case()
+    jt, jtl, jtv = jnp.asarray(t), jnp.asarray(t_loc), jnp.asarray(t_valid)
+    c = ~unc
+    ji, jd = best_target_chunked(
+        jnp.asarray(q[c]), jt, jtv,
+        mask_fn=lambda a, b: _epipolar_segment_mask(a, b, jtl, eps),
+        mask_aux=(jnp.asarray(p1[c]), jnp.asarray(p2[c])), chunk=128)
+    ui, ud = best_target_chunked(jnp.asarray(q[unc]), jt, jtv, chunk=128)
+
+    idx, dist = best_target(*(torch.from_numpy(a) for a in (q, t, t_loc, p1, p2)), eps,
+                            torch.from_numpy(t_valid))
+    assert idx.dtype == torch.int32 and dist.dtype == torch.float32
+    np.testing.assert_array_equal(idx.numpy()[c], np.asarray(ji))
+    np.testing.assert_array_equal(dist.numpy()[c], np.asarray(jd))
+    np.testing.assert_array_equal(idx.numpy()[unc], np.asarray(ui))
+    np.testing.assert_array_equal(dist.numpy()[unc], np.asarray(ud))
+    assert idx[260] == 9 and dist[260] == 0.0      # tie -> lowest index
+    assert idx[6] == 0 and dist[6] == np.inf       # nothing passes
+    assert t_valid[idx.numpy()[np.isfinite(dist.numpy())]].all()  # invalid never wins
+
+
+def test_distance_matrix_exact():
+    """Exact integer distances over the full uint8 range, and min_distance
+    as the minimum over valid targets."""
+    from ssrlcv_tpu_torch.matching.distance import distance_matrix, min_distance
+
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 256, (64, 128)).astype(np.uint8)
+    t = rng.integers(0, 256, (96, 128)).astype(np.uint8)
+    d = distance_matrix(torch.from_numpy(q), torch.from_numpy(t))
+    expect = ((q.astype(np.int64)[:, None] - t.astype(np.int64)[None]) ** 2).sum(-1)
+    assert d.dtype == torch.int32
+    np.testing.assert_array_equal(d.numpy(), expect)
+    valid = rng.uniform(size=96) > 0.3
+    got = min_distance(torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(valid), chunk=16)
+    np.testing.assert_array_equal(got.numpy(), expect[:, valid].min(1).astype(np.float32))
+
+
+def _wrapper_calls():
+    from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+
+    def orient(dev="cpu", dtype=torch.float32, k=4, contiguous=True):
+        g = torch.zeros((32, 32), dtype=dtype, device=dev)
+        loc = torch.full((k, 2), 16.0, device=dev)
+        if not contiguous:
+            loc = torch.full((2, k), 16.0, device=dev).T
+        return orientation_histograms(g, g, loc, torch.ones(4, device=dev), 1.0, 4, 1.5)
+
+    def desc(dev="cpu", dtype=torch.float32, k=4, contiguous=True):
+        g = torch.zeros((32, 32), dtype=dtype, device=dev)
+        loc = torch.full((k, 2), 16.0, device=dev)
+        if not contiguous:
+            loc = torch.full((2, k), 16.0, device=dev).T
+        z = torch.ones(4, device=dev)
+        return descriptor_histograms(g, g, loc, z, z, 1.0, 6.0, 6)
+
+    def match(dev="cpu", dtype=torch.uint8, k=4, contiguous=True):
+        q = torch.zeros((4, 128), dtype=dtype, device=dev)
+        t = torch.zeros((4, 128), dtype=torch.uint8, device=dev)
+        loc = torch.zeros((k, 2), device=dev)
+        if not contiguous:
+            loc = torch.zeros((2, k), device=dev).T
+        p = torch.full((4, 2), torch.inf, device=dev)
+        return best_target(q, t, loc, p, p, 0.0, torch.ones(4, dtype=torch.bool, device=dev))
+
+    return {"orient": orient, "desc": desc, "match": match}
+
+
+@pytest.mark.parametrize("name", ["orient", "desc", "match"])
+def test_wrapper_argument_checks(name):
+    """Each wrapper rejects a wrong dtype, a wrong shape, a non-contiguous
+    operand and a device it has no path for (a meta tensor stands in for a
+    non-CPU tensor here: the CUDA branch launches or raises, it never falls
+    back to the plain version)."""
+    call = _wrapper_calls()[name]
+    call()  # the CPU path runs
+    with pytest.raises(TypeError):
+        call(dtype=torch.float64 if name != "match" else torch.int32)
+    with pytest.raises(ValueError):
+        call(k=5)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(contiguous=False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        call(dev="meta")
+
+
+def test_cpu_path_counts_no_launch_and_builds_nothing(monkeypatch):
+    """CPU tensors take the plain versions: no launch is counted and the
+    kernel library is never built or loaded."""
+    from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+
+    def no_build():
+        raise AssertionError("the kernel library was requested on the CPU path")
+
+    monkeypatch.setattr(_cuda, "library", no_build)
+    before = [f.launches for f in (orientation_histograms, descriptor_histograms, best_target)]
+    for call in _wrapper_calls().values():
+        call()
+    after = [f.launches for f in (orientation_histograms, descriptor_histograms, best_target)]
+    assert before == after
+
+
+def test_library_name_tracks_the_sources(tmp_path, monkeypatch):
+    """The built library's name hashes the kernel sources, so an edited
+    source never loads a stale library."""
+    from ssrlcv_tpu_torch import _cuda
+
+    first = _cuda.library_path()
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _cuda._sources():
+        (src / p.rsplit("/", 1)[-1]).write_bytes(open(p, "rb").read())
+    monkeypatch.setattr(_cuda, "CSRC_DIR", str(src))
+    assert _cuda.library_path() == first
+    (src / "match.cu").write_text((src / "match.cu").read_text() + "\n// edited\n")
+    assert _cuda.library_path() != first
