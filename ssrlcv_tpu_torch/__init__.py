@@ -8,9 +8,12 @@ counterpart is easy to find:
     core/        Cameras, FeatureSet, MatchSet, Bundles, PointCloud; camera math
     ops/         image primitives (blur, bin, upsample, gradients)
     features/    scale space, DoG detection, orientation (kernel K1),
-                 descriptors (kernel K2), SIFT orchestration
+                 descriptors (kernel K2), per-keypoint gradient patches
+                 (kernel K5, the use_patches route), SIFT orchestration
     matching/    exact descriptor distances, epipolar-gated best target
-                 (kernel K3), matching and match-set assembly
+                 (kernel K3; kernel K4 on the tensor cores), brute-force,
+                 F-matrix and double-constrained matching, match-set assembly
+    bench/       device timing and the patch-gather micro-benchmark (kernel K6)
     geometry/    bundles, 2-view triangulation, filters
     ba/          2-view bundle adjustment (Levenberg-Marquardt, torch.func)
     pipeline/    the 2-view reconstruction stages

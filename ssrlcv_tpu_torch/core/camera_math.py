@@ -1,4 +1,5 @@
-"""Camera geometry: rotations, ray lifting, projections, epipolar segments.
+"""Camera geometry: rotations, ray lifting, projections, epipolar segments,
+fundamental matrices.
 
 Counterpart of ``ssrlcv_tpu/core/camera_math.py``; the same conventions:
 ``rotation_matrix(angles)`` builds R = Rz(z) @ Ry(y) @ Rx(x), a camera's
@@ -131,3 +132,42 @@ def epipolar_segment_endpoints(loc, q_cam_pos, q_cam_rot, q_foc, q_dpix, q_size,
         return x[..., :2] / x[..., 2:3]
 
     return _proj(_hit(c1)), _proj(_hit(c2))
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrix: skew(v) @ u = v x u; (..., 3) -> (..., 3, 3)."""
+    zero = torch.zeros_like(v[..., 0])
+    return torch.stack(
+        [
+            torch.stack([zero, -v[..., 2], v[..., 1]], -1),
+            torch.stack([v[..., 2], zero, -v[..., 0]], -1),
+            torch.stack([-v[..., 1], v[..., 0], zero], -1),
+        ],
+        dim=-2,
+    )
+
+
+def fundamental_from_cameras(cam_rot0, cam_pos0, cam_rot1, cam_pos1, foc_pixels, size):
+    """Fundamental matrix of two Euler-parameterised cameras sharing
+    intrinsics (focal length in pixels, principal point at the image
+    centre): F = K^-T [t]_x R K^-1, with R, t the motion from camera-0 to
+    camera-1 coordinates.  Used by the F-matrix constrained matcher."""
+    cx = size[..., 0].to(torch.float32) / 2.0
+    cy = size[..., 1].to(torch.float32) / 2.0
+    zero = torch.zeros_like(foc_pixels)
+    one = torch.ones_like(foc_pixels)
+    K = torch.stack(
+        [
+            torch.stack([foc_pixels, zero, cx], -1),
+            torch.stack([zero, foc_pixels, cy], -1),
+            torch.stack([zero, zero, one], -1),
+        ],
+        dim=-2,
+    )
+    R0 = rotation_matrix(cam_rot0)
+    R1t = rotation_matrix(cam_rot1).transpose(-1, -2)
+    R_rel = R1t @ R0
+    t_rel = _matvec(R1t, cam_pos0 - cam_pos1)
+    E = skew(t_rel) @ R_rel
+    K_inv = torch.linalg.inv(K)
+    return K_inv.transpose(-1, -2) @ E @ K_inv

@@ -10,13 +10,8 @@
 // Distance: with q' = q - 128 and t' = t - 128 as int8 (u8 ^ 0x80 is that
 // value), ||q - t||^2 = |q'|^2 + |t'|^2 - 2 q'.t', all int32 and exact; the
 // dot is 32 __dp4a per pair.
-// Gate (query with endpoints p1, p2; target (tx, ty); epsilon e):
-//   p1.x not finite            -> unconstrained, every valid target passes;
-//   left/right = endpoints ordered by x (p1.x >= p2.x swaps);
-//   left.x - e <= tx <= right.x + e, and
-//   vertical (left.x == right.x): min(p1.y,p2.y) - e <= ty <= max(..) + e
-//   else |slope*(tx - left.x) + left.y - ty| <= e,
-//        slope = (left.y - right.y) / (left.x - right.x).
+// Gate: epi_gate / epi_gate_pass of common.cuh (shared with K4); p1.x not
+// finite -> unconstrained, every valid target passes.
 // Invalid targets never win; ties go to the lowest index; a query with no
 // passing target returns (0, +inf).
 //
@@ -37,10 +32,8 @@
 //
 // Parity with the plain version:
 //  * distances are exact integers on both sides;
-//  * the gate's y_line = slope*(tx-left.x) + left.y is computed with
-//    __fmul_rn/__fadd_rn: a fused multiply-add would move |y_line-ty| <= e
-//    at the boundary; every other gate term is a single rounded operation
-//    (IEEE division and subtraction), as in the plain version.
+//  * every gate term is a single rounded operation, as in the plain
+//    version (common.cuh).
 #include "common.cuh"
 
 namespace {
@@ -79,20 +72,8 @@ __global__ void match_best_kernel(const uint8_t* __restrict__ q, const uint8_t* 
     for (int i = 0; i < 32; ++i) qn = __dp4a(qw[i], qw[i], qn);
   }
 
-  // per-query gate terms (each a single rounded operation)
-  const float p1x = p1[2 * (qlive ? qi : 0)], p1y = p1[2 * (qlive ? qi : 0) + 1];
-  const float p2x = p2[2 * (qlive ? qi : 0)], p2y = p2[2 * (qlive ? qi : 0) + 1];
-  const bool unconstrained = !isfinite(p1x);
-  const bool swap = p1x >= p2x;
-  const float lx = swap ? p2x : p1x, ly = swap ? p2y : p1y;
-  const float rx = swap ? p1x : p2x, ry = swap ? p1y : p2y;
-  const float x_lo = __fsub_rn(lx, eps);
-  const float x_hi = __fadd_rn(rx, eps);
-  const bool vertical = lx == rx;
-  const float y_lo = __fsub_rn(fminf(p1y, p2y), eps);
-  const float y_hi = __fadd_rn(fmaxf(p1y, p2y), eps);
-  const float dxs = __fsub_rn(lx, rx);
-  const float slope = __fdiv_rn(__fsub_rn(ly, ry), dxs == 0.0f ? 1.0f : dxs);
+  const int qr = qlive ? qi : 0;
+  const EpiGate gate = epi_gate(p1[2 * qr], p1[2 * qr + 1], p2[2 * qr], p2[2 * qr + 1], eps);
 
   int best_d = INT_MAX;
   int best_i = 0;
@@ -130,19 +111,7 @@ __global__ void match_best_kernel(const uint8_t* __restrict__ q, const uint8_t* 
 
     for (int j = 0; j < nj; ++j) {
       if (!s_tv[j]) continue;  // same j for every thread: no divergence
-      bool pass = unconstrained;
-      if (!pass) {
-        const float tx = s_tx[j], ty = s_ty[j];
-        if (tx >= x_lo && tx <= x_hi) {
-          if (vertical) {
-            pass = y_lo <= ty && y_hi >= ty;
-          } else {
-            const float y_line = __fadd_rn(__fmul_rn(slope, __fsub_rn(tx, lx)), ly);
-            pass = fabsf(__fsub_rn(y_line, ty)) <= eps;
-          }
-        }
-      }
-      if (!pass) continue;
+      if (!epi_gate_pass(gate, s_tx[j], s_ty[j])) continue;
       int dot = 0;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {

@@ -16,6 +16,7 @@ import math
 import torch
 
 from ssrlcv_tpu_torch import _cuda
+from ssrlcv_tpu_torch.features.patches import plane_sampler
 
 TWO_PI = 2.0 * math.pi
 RAD45 = math.pi / 4.0
@@ -32,11 +33,18 @@ def descriptor_window(sigma: torch.Tensor, pixel_width: float, lambda_d: float) 
 
 
 def descriptor_histograms_plain(gx, gy, loc, theta, sigma, pixel_width: float,
-                                lambda_d: float, w_max: int, chunk: int = 512) -> torch.Tensor:
-    """(K, 128) float32 raw histograms by gathering the rotated
-    (2*w_max+1)^2 lattice of each keypoint, ``chunk`` keypoints at a time."""
+                                lambda_d: float, w_max: int, chunk: int = 512,
+                                sample=None) -> torch.Tensor:
+    """(K, 128) float32 raw histograms by sampling the rotated
+    (2*w_max+1)^2 lattice of each keypoint, ``chunk`` keypoints at a time.
+
+    ``sample(sl, yi, xi)`` reads the gradients of keypoints ``sl`` at plane
+    coordinates: by default the planes themselves
+    (``patches.plane_sampler``); the ``use_patches`` route passes
+    ``patches.patch_sampler``."""
     h, w = gx.shape
     dev = gx.device
+    sample = sample or plane_sampler(gx, gy)
     offs = torch.arange(2 * w_max + 1, device=dev, dtype=torch.float32) - w_max
     dy_g, dx_g = torch.meshgrid(offs, offs, indexing="ij")
     dx = dx_g.reshape(-1)
@@ -58,8 +66,7 @@ def descriptor_histograms_plain(gx, gy, loc, theta, sigma, pixel_width: float,
                    & (torch.abs(cxs) <= wc) & (torch.abs(cys) <= wc))
         xi = torch.clamp(torch.round(cxs + lc[:, 0:1]).to(torch.int64), 0, w - 1)
         yi = torch.clamp(torch.round(cys + lc[:, 1:2]).to(torch.int64), 0, h - 1)
-        g_x = gx[yi, xi]
-        g_y = gy[yi, xi]
+        g_x, g_y = sample(sl, yi, xi)
         mag = torch.sqrt(g_x * g_x + g_y * g_y)
         wgt = mag * torch.exp(-(cxs * cxs + cys * cys) / (2.0 * (wc * wc)))
         ang = torch.fmod(torch.atan2(g_y, g_x) - th[:, None] + TWO_PI, TWO_PI)

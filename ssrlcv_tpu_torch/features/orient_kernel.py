@@ -16,6 +16,7 @@ import math
 import torch
 
 from ssrlcv_tpu_torch import _cuda
+from ssrlcv_tpu_torch.features.patches import plane_sampler
 
 TWO_PI = 2.0 * math.pi
 INV_RAD10 = 18.0 / math.pi  # bin = floor(angle * 18/pi): a product on every device
@@ -31,9 +32,13 @@ def window_and_denom(sigma: torch.Tensor, pixel_width: float, lambda_o: float):
 
 
 def orientation_histograms_plain(gx, gy, loc, sigma, pixel_width: float, w_max: int,
-                                 lambda_o: float) -> torch.Tensor:
-    """(K, 36) float32 weighted orientation histograms by gathering the
-    (2*w_max+1)^2 grid around each keypoint, masked to its own window."""
+                                 lambda_o: float, sample=None) -> torch.Tensor:
+    """(K, 36) float32 weighted orientation histograms by sampling the
+    (2*w_max+1)^2 grid around each keypoint, masked to its own window.
+
+    ``sample(sl, yi, xi)`` reads the gradients at plane coordinates: by
+    default the planes themselves (``patches.plane_sampler``); the
+    ``use_patches`` route passes ``patches.patch_sampler``."""
     h, w = gx.shape
     win, denom = window_and_denom(sigma, pixel_width, lambda_o)
     dev = gx.device
@@ -46,8 +51,7 @@ def orientation_histograms_plain(gx, gy, loc, sigma, pixel_width: float, w_max: 
     oi = offs.to(torch.int64)
     xi = torch.clamp(cx[:, None, None] + oi[None, None, :], 0, w - 1)
     yi = torch.clamp(cy[:, None, None] + oi[None, :, None], 0, h - 1)
-    g_x = gx[yi, xi]
-    g_y = gy[yi, xi]
+    g_x, g_y = (sample or plane_sampler(gx, gy))(slice(None), yi, xi)
     mag = torch.sqrt(g_x * g_x + g_y * g_y)
     wgt = mag * torch.exp(-(dx * dx + dy * dy)[None] / denom[:, None, None])
     wgt = torch.where(in_win, wgt, 0.0)

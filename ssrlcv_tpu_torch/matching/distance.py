@@ -29,17 +29,30 @@ def distance_matrix(q_desc: torch.Tensor, t_desc: torch.Tensor) -> torch.Tensor:
     return qn[:, None] + tn[None, :] - 2 * cross
 
 
+def sad_matrix(q_desc: torch.Tensor, t_desc: torch.Tensor) -> torch.Tensor:
+    """(Nq, D) x (Nt, D) uint8 -> (Nq, Nt) int32 exact sum of absolute
+    differences (the Window_NxN distance).  Every partial sum is an integer
+    below 2^24, so the float32 L1 distance is exact in any order."""
+    return torch.cdist(q_desc.to(torch.float32), t_desc.to(torch.float32), p=1).to(torch.int32)
+
+
+_METRICS = {"l2sq": distance_matrix, "sad": sad_matrix}
+
+
 def best_target_chunked(q_desc, t_desc, t_valid, mask_fn: Optional[Callable] = None,
-                        mask_aux: tuple = (), chunk: int = 1024):
+                        mask_aux: tuple = (), chunk: int = 1024, metric: str = "l2sq"):
     """argmin over valid targets per query, ``chunk`` queries at a time.
 
     ``mask_fn(*aux_chunk)`` -> (chunk, Nt) bool of allowed targets, where
     ``mask_aux`` holds per-query tensors chunked alongside the descriptors.
     Returns (best_idx int32, best_dist float32); a query with no allowed
-    target gets (0, +inf); ties resolve to the lowest target index."""
+    target gets (0, +inf); ties resolve to the lowest target index.
+    metric: 'l2sq' (squared L2, SIFT) or 'sad' (sum of absolute
+    differences, Window_NxN)."""
+    dist_fn = _METRICS[metric]
     idx_out, dist_out = [], []
     for s in range(0, q_desc.shape[0], chunk):
-        d = distance_matrix(q_desc[s:s + chunk], t_desc).to(torch.float32)
+        d = dist_fn(q_desc[s:s + chunk], t_desc).to(torch.float32)
         bad = ~t_valid[None, :]
         if mask_fn is not None:
             bad = bad | ~mask_fn(*(a[s:s + chunk] for a in mask_aux))
@@ -54,6 +67,7 @@ def best_target_chunked(q_desc, t_desc, t_valid, mask_fn: Optional[Callable] = N
     return torch.cat(idx_out), torch.cat(dist_out)
 
 
-def min_distance(q_desc, t_desc, t_valid, chunk: int = 1024) -> torch.Tensor:
+def min_distance(q_desc, t_desc, t_valid, chunk: int = 1024,
+                 metric: str = "l2sq") -> torch.Tensor:
     """Per-query minimum distance to any valid target."""
-    return best_target_chunked(q_desc, t_desc, t_valid, chunk=chunk)[1]
+    return best_target_chunked(q_desc, t_desc, t_valid, chunk=chunk, metric=metric)[1]

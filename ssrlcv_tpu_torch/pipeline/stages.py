@@ -83,19 +83,21 @@ def do_feature_generation(state: PipelineState) -> PipelineState:
 
 
 def do_feature_matching(state: PipelineState) -> PipelineState:
-    """Stage 2: seed distances (when seed features are set), seeded
-    double-constrained matching, match-set assembly."""
+    """Stage 2: seed distances (when seed features are set), then mode
+    "double" matches double-constrained and every other mode brute force (as
+    the JAX stage does, "fmatrix" included), then match-set assembly."""
     from ssrlcv_tpu_torch.matching import match as M
 
     cfg = state.config.match
-    if cfg.mode != "double":
-        raise NotImplementedError(f"match mode {cfg.mode!r} is not ported; only 'double' is")
     sd = None
     if state.seed_features is not None:
         sd = M.seed_distances(state.features[0], state.seed_features)
         state.seed_distances = sd
     f0, f1 = state.features
-    dm = M.match_double_constrained(f0, f1, state.cameras, 0, 1, cfg, seed_dist=sd)
+    if cfg.mode == "double":
+        dm = M.match_double_constrained(f0, f1, state.cameras, 0, 1, cfg, seed_dist=sd)
+    else:
+        dm = M.match_brute_force(f0, f1, cfg, seed_dist=sd)
     state.matches = M.matches_to_matchset(dm, f0, f1, 0, 1)
     logger.info(f"total matches: {state.matches.count()}")
     return state

@@ -62,6 +62,46 @@ def _match_case(seed=5):
     return q, t, t_loc, p1, p2, t_valid, unc
 
 
+def _mma_case(seed=11):
+    """K4's cases at Nq = 256, Nt = 1024: padded (invalid) targets, a
+    duplicated target (a tie), a vertical segment, a query no target
+    passes, unconstrained rows, and descriptors over the full uint8 range."""
+    rng = np.random.default_rng(seed)
+    nq, nt = 256, 1024
+    t = rng.integers(0, 256, (nt, 128)).astype(np.uint8)
+    q = rng.integers(0, 256, (nq, 128)).astype(np.uint8)
+    q[:32] = t[rng.integers(0, nt, 32)]
+    t[700] = t[300]                               # a tie: lowest index must win
+    q[200] = t[300]
+    t_loc = rng.uniform(0, 256, (nt, 2)).astype(np.float32)
+    t_valid = np.ones(nt, bool)
+    t_valid[-50:] = False                         # capacity padding
+    t_valid[rng.integers(0, nt - 50, 40)] = False
+    t_valid[[300, 700]] = True
+    p1 = rng.uniform(0, 256, (nq, 2)).astype(np.float32)
+    p2 = rng.uniform(0, 256, (nq, 2)).astype(np.float32)
+    p2[5, 0] = p1[5, 0]                           # vertical segment
+    p1[6] = (5000.0, 5000.0)                      # no target passes
+    p2[6] = (5100.0, 5200.0)
+    unc = np.zeros(nq, bool)
+    unc[192:] = True
+    p1[unc] = np.inf
+    p2[unc] = np.inf
+    return q, t, t_loc, p1, p2, t_valid, unc
+
+
+def _patch_case(seed=0, h=320, w=512, k=37):
+    """tests/test_patches.py's extraction setup: gradient planes and k
+    keypoints, some near the edges, a few on exact .5 coordinates (rounded
+    half to even)."""
+    rng = np.random.default_rng(seed)
+    gx = rng.standard_normal((h, w)).astype(np.float32)
+    gy = rng.standard_normal((h, w)).astype(np.float32)
+    loc = rng.uniform(2, min(h, w) - 3, (k, 2)).astype(np.float32)
+    loc[:4] = [(2.5, 3.5), (w - 2.5, h - 3.5), (190.5, 64.5), (191.5, 63.5)]
+    return gx, gy, loc
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -163,3 +203,85 @@ def test_cuda_slice_matches_cpu(cuda_device, tmp_path):
     ng, nc = g.matches.count(), c.matches.count()
     assert nc > 200 and abs(ng - nc) <= 0.01 * nc
     assert g.ba_error[1] <= g.ba_error[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [512, 510])
+def test_cuda_extract_patches_matches_plain(cuda_device, w):
+    """K5 bit-identical to its plain version in both copy forms (float4
+    rows for W % 4 == 0, scalar otherwise), bitwise equal to itself."""
+    from ssrlcv_tpu_torch.features.patches import extract_patches, extract_patches_plain
+
+    gx, gy, loc = (torch.from_numpy(a).to(cuda_device) for a in _patch_case(w=w))
+    n = extract_patches.launches
+    got = extract_patches(gx, gy, loc, 12)
+    assert extract_patches.launches == n + 1
+    again = extract_patches(gx, gy, loc, 12)
+    for a, b, c in zip(got, again, extract_patches_plain(gx, gy, loc, 12)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_best_target_mma_matches_plain(cuda_device):
+    """K4 bit-identical to its plain version, and to K3 on every query with
+    an admissible target; (0, 3.0e38) on the others."""
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.matching.match_mma import (NO_MATCH_DIST, best_target_mma,
+                                                     best_target_mma_plain)
+
+    q, t, t_loc, p1, p2, t_valid, _ = _mma_case()
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, t, t_loc, p1, p2)]
+    tv = torch.from_numpy(t_valid).to(cuda_device)
+    n = best_target_mma.launches
+    ik, dk = best_target_mma(*args, 25.0, tv)
+    assert best_target_mma.launches == n + 1
+    ik2, dk2 = best_target_mma(*args, 25.0, tv)
+    assert torch.equal(ik, ik2) and torch.equal(dk, dk2)
+    ip, dp = best_target_mma_plain(*args, 25.0, tv)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    i3, d3 = best_target(*args, 25.0, tv)
+    answered = torch.isfinite(d3)
+    assert torch.equal(ik[answered], i3[answered]) and torch.equal(dk[answered], d3[answered])
+    assert (ik[~answered] == 0).all() and (dk[~answered] == NO_MATCH_DIST).all()
+    assert not bool(answered[6]) and int(ik[200]) == 300
+
+
+@pytest.mark.cuda
+def test_cuda_patch_row_sums_matches_plain(cuda_device):
+    """K6 bit-identical to its plain version (the same row order, denormals
+    kept), bitwise equal to itself."""
+    from ssrlcv_tpu_torch.bench.gather_patches import (make_inputs, patch_row_sums,
+                                                       patch_row_sums_plain)
+
+    inp = make_inputs(seed=0, b=4, h=256, w=512, k=64, device=cuda_device)
+    args = (inp["packed"], inp["bi"], inp["cy"], inp["cx"])
+    n = patch_row_sums.launches
+    got = patch_row_sums(*args)
+    assert patch_row_sums.launches == n + 1
+    assert torch.equal(got, patch_row_sums(*args))
+    assert torch.equal(got, patch_row_sums_plain(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_refuse_bad_arguments(cuda_device):
+    """On the card the K4, K5 and K6 wrappers raise on what their kernels
+    do not take, and never fall back to the plain version."""
+    from ssrlcv_tpu_torch.bench.gather_patches import patch_row_sums
+    from ssrlcv_tpu_torch.features.patches import extract_patches
+    from ssrlcv_tpu_torch.matching.match_mma import best_target_mma
+
+    q, t, t_loc, p1, p2, t_valid, _ = _mma_case()
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, t, t_loc, p1, p2)]
+    tv = torch.from_numpy(t_valid).to(cuda_device)
+    shifted = torch.zeros(q.size + 1, dtype=torch.uint8, device=cuda_device)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        best_target_mma(shifted, *args[1:], 25.0, tv)
+    g = torch.zeros((32, 512), device=cuda_device)
+    with pytest.raises(ValueError, match="plane of at least"):
+        extract_patches(g, g, torch.zeros((4, 2), device=cuda_device), 12)
+    plane = torch.zeros((2, 40, 512), device=cuda_device)  # below SPA = 48 rows
+    k = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="at least"):
+        patch_row_sums(plane, k, k, k, 33)
+    with pytest.raises(TypeError):
+        patch_row_sums(torch.zeros((2, 256, 512), device=cuda_device), k.long(), k, k, 33)

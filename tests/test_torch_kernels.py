@@ -124,10 +124,54 @@ def test_distance_matrix_exact():
     np.testing.assert_array_equal(got.numpy(), expect[:, valid].min(1).astype(np.float32))
 
 
+def _strat_h_numpy(packed, bi, cy, cx, s):
+    """scripts/bench_gather2.py's strat_h restated in numpy: the aligned
+    (SPA, 256) patch per keypoint, |p| summed over its rows (in row order,
+    float32), the first 128 lanes."""
+    _, h, w = packed.shape
+    spa = ((s + 7) // 8) * 8 + 8
+    y0 = np.clip((cy - s // 2) & ~7, 0, h - spa)
+    x0 = np.clip((cx - 64) & ~127, 0, w - 256)
+    out = np.zeros((len(bi), 128), np.float32)
+    for k in range(len(bi)):
+        patch = packed[bi[k], y0[k]:y0[k] + spa, x0[k]:x0[k] + 256]
+        acc = np.zeros(256, np.float32)
+        for row in patch:
+            acc += np.abs(row)
+        out[k] = acc[:128]
+    return out
+
+
+def test_patch_row_sums_plain_matches_strat_h():
+    """K6's plain version against a numpy restatement of strat_h (the
+    script itself cannot be imported: at import it sets a compilation cache
+    inside the repo and allocates its full-size data), bit-identical, at
+    B,H,W = 4,256,512 and K = 64 (the script's generator draws planes from
+    1..B-2, so B = 4 exercises two).  The packing equals the script's jnp
+    pack."""
+    from ssrlcv_tpu_torch.bench.gather_patches import make_inputs, pack, patch_row_sums
+
+    inp = make_inputs(seed=0, b=4, h=256, w=512, k=64)
+    np_in = {k: v.numpy() for k, v in inp.items()}
+    assert set(np.unique(np_in["bi"])) == {1, 2}
+    got = patch_row_sums(inp["packed"], inp["bi"], inp["cy"], inp["cx"], 33)
+    ref = _strat_h_numpy(np_in["packed"], np_in["bi"], np_in["cy"], np_in["cx"], 33)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+    g = jnp.asarray(np_in["grads"][:1, :8])
+    u = g.astype(jnp.float16).view(jnp.uint16).astype(jnp.uint32)
+    jpacked = (u[..., 0] | (u[..., 1] << 16)).view(jnp.float32)
+    np.testing.assert_array_equal(pack(np_in["grads"][:1, :8]).view(np.uint32),
+                                  np.asarray(jpacked).view(np.uint32))
+
+
 def _wrapper_calls():
+    from ssrlcv_tpu_torch.bench.gather_patches import patch_row_sums
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+    from ssrlcv_tpu_torch.features.patches import extract_patches
     from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.matching.match_mma import best_target_mma
 
     def orient(dev="cpu", dtype=torch.float32, k=4, contiguous=True):
         g = torch.zeros((32, 32), dtype=dtype, device=dev)
@@ -144,19 +188,38 @@ def _wrapper_calls():
         z = torch.ones(4, device=dev)
         return descriptor_histograms(g, g, loc, z, z, 1.0, 6.0, 6)
 
-    def match(dev="cpu", dtype=torch.uint8, k=4, contiguous=True):
+    def match(dev="cpu", dtype=torch.uint8, k=4, contiguous=True, fn=best_target):
         q = torch.zeros((4, 128), dtype=dtype, device=dev)
         t = torch.zeros((4, 128), dtype=torch.uint8, device=dev)
         loc = torch.zeros((k, 2), device=dev)
         if not contiguous:
             loc = torch.zeros((2, k), device=dev).T
         p = torch.full((4, 2), torch.inf, device=dev)
-        return best_target(q, t, loc, p, p, 0.0, torch.ones(4, dtype=torch.bool, device=dev))
+        return fn(q, t, loc, p, p, 0.0, torch.ones(4, dtype=torch.bool, device=dev))
 
-    return {"orient": orient, "desc": desc, "match": match}
+    def patches(dev="cpu", dtype=torch.float32, k=4, contiguous=True):
+        gx = torch.zeros((64, 256), dtype=dtype, device=dev)
+        gy = torch.zeros((64, 252 + k), dtype=dtype, device=dev)  # k != 4: unequal planes
+        loc = torch.full((4, 2), 16.0, device=dev)
+        if not contiguous:
+            loc = torch.full((2, 4), 16.0, device=dev).T
+        return extract_patches(gx, gy, loc, 12)
+
+    def row_sums(dev="cpu", dtype=torch.int32, k=4, contiguous=True):
+        plane = torch.zeros((3, 64, 256), device=dev)
+        bi = torch.ones(k, dtype=dtype, device=dev)
+        c = torch.full((4,), 32, dtype=torch.int32, device=dev)
+        if not contiguous:
+            c = torch.full((4, 2), 32, dtype=torch.int32, device=dev)[:, 0]
+        return patch_row_sums(plane, bi, c, c, 33)
+
+    return {"orient": orient, "desc": desc, "match": match,
+            "match_mma": lambda **kw: match(fn=best_target_mma, **kw),
+            "patches": patches, "row_sums": row_sums}
 
 
-@pytest.mark.parametrize("name", ["orient", "desc", "match"])
+@pytest.mark.parametrize("name", ["orient", "desc", "match", "match_mma", "patches",
+                                  "row_sums"])
 def test_wrapper_argument_checks(name):
     """Each wrapper rejects a wrong dtype, a wrong shape, a non-contiguous
     operand and a device it has no path for (a meta tensor stands in for a
@@ -165,7 +228,8 @@ def test_wrapper_argument_checks(name):
     call = _wrapper_calls()[name]
     call()  # the CPU path runs
     with pytest.raises(TypeError):
-        call(dtype=torch.float64 if name != "match" else torch.int32)
+        call(dtype={"match": torch.int32, "match_mma": torch.int32,
+                    "row_sums": torch.int64}.get(name, torch.float64))
     with pytest.raises(ValueError):
         call(k=5)
     with pytest.raises(ValueError, match="contiguous"):
@@ -178,19 +242,23 @@ def test_cpu_path_counts_no_launch_and_builds_nothing(monkeypatch):
     """CPU tensors take the plain versions: no launch is counted and the
     kernel library is never built or loaded."""
     from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.bench.gather_patches import patch_row_sums
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+    from ssrlcv_tpu_torch.features.patches import extract_patches
     from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.matching.match_mma import best_target_mma
 
     def no_build():
         raise AssertionError("the kernel library was requested on the CPU path")
 
     monkeypatch.setattr(_cuda, "library", no_build)
-    before = [f.launches for f in (orientation_histograms, descriptor_histograms, best_target)]
+    wrappers = (orientation_histograms, descriptor_histograms, best_target, best_target_mma,
+                extract_patches, patch_row_sums)
+    before = [f.launches for f in wrappers]
     for call in _wrapper_calls().values():
         call()
-    after = [f.launches for f in (orientation_histograms, descriptor_histograms, best_target)]
-    assert before == after
+    assert [f.launches for f in wrappers] == before
 
 
 def test_library_name_tracks_the_sources(tmp_path, monkeypatch):

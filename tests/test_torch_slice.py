@@ -27,22 +27,26 @@ def scene():
     return make_scene(seed=0, size=256)
 
 
-def _config(out_dir):
+def _config(out_dir, mode="double"):
     from ssrlcv_tpu.config import MatchParams, PipelineConfig, SIFTParams
 
     # the main path's matcher settings; a small capacity keeps the JAX
     # chunked matcher small on the CPU
     return PipelineConfig(output_dir=str(out_dir)).replace(
-        match=MatchParams(epsilon=25.0, delta=5.0), sift=SIFTParams(max_keypoints=4096))
+        match=MatchParams(epsilon=25.0, delta=5.0, mode=mode),
+        sift=SIFTParams(max_keypoints=4096))
 
 
-def test_slice_matches_jax(scene, tmp_path):
+@pytest.mark.parametrize("mode", ["double", "brute"])
+def test_slice_matches_jax(scene, tmp_path, mode):
+    """Stage 2 in mode "double" (the main path) and "brute" (brute-force
+    matching with seed distances)."""
     from ssrlcv_tpu.features.sift import generate_features as jax_sift
     from ssrlcv_tpu.pipeline import stages as J
     from ssrlcv_tpu_torch.features.sift import generate_features
     from ssrlcv_tpu_torch.pipeline import stages as T
 
-    cfg = _config(tmp_path / "torch")
+    cfg = _config(tmp_path / "torch", mode)
     ts = T.PipelineState(config=cfg, images=scene.images,
                          seed_features=generate_features(scene.seed_image.pixels, cfg.sift, -1))
     ts = T.run_pipeline(ts, "cpu")
@@ -102,7 +106,9 @@ def test_port_imports_no_jax():
     mods = ["ssrlcv_tpu_torch", "ssrlcv_tpu_torch.synthetic",
             "ssrlcv_tpu_torch.pipeline.stages", "ssrlcv_tpu_torch.features.sift",
             "ssrlcv_tpu_torch.matching.match", "ssrlcv_tpu_torch.geometry.filters",
-            "ssrlcv_tpu_torch.ba.two_view", "ssrlcv_tpu_torch._cuda"]
+            "ssrlcv_tpu_torch.ba.two_view", "ssrlcv_tpu_torch._cuda",
+            "ssrlcv_tpu_torch.features.patches", "ssrlcv_tpu_torch.matching.match_mma",
+            "ssrlcv_tpu_torch.bench.gather_patches", "ssrlcv_tpu_torch.bench.timing"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
             + "assert not bad, bad\nprint('ok')\n")
