@@ -24,14 +24,26 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
   3b. the same pair in the brute-force matching configuration
      (MatchParams(mode="brute")), then K4 on that run's two feature sets
      against K3;
+  3c. bundle adjustment's other modes on phase 3's filtered matches:
+     "newton" (final error not above initial) and "reference" (no update);
   4. the everest fixture pair, only where the JAX benchmark's fixture
-     directory exists.
+     directory exists;
+  5. the command line (ssrlcv_tpu_torch.pipeline.sfm.main, in process) on
+     the scene's three views written as a directory with params.csv, with
+     checkpoints: stage times, tracks by view count, BA error, the
+     reconstruction's checks; then again with the stage-5 marker deleted,
+     which must resume at stage 5 and launch no kernel;
+  6. the command line with --pose on the 2-view pair of phase 3.
 
 Kernel times are device times from CUDA events over back-to-back launches
 queued behind a device-side sleep (ssrlcv_tpu_torch.bench.timing).  Each
 path that runs a kernel sets its launch counters to 0 just before and reads
 them just after; launches made only to compare a kernel with its plain
 version are not counted.
+
+The command-line phases read what a user of the command line gets: the
+PLY files, the stage checkpoints and the log (stage seconds from CUDA
+events, host-clock phases, the BA error).
 
 Exits non-zero on any failure, and at once, printing no result, when no CUDA
 device is available or the script is not run from the root of a checkout.
@@ -40,8 +52,10 @@ last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -428,7 +442,7 @@ def phase_main_path(scene, dev):
           + ", ".join(f"{k} {v:.4f}" for k, v in warm.stage_seconds.items())
           + f"; e2e {time.perf_counter() - t0:.3f} s; points {warm.matches.count()} "
           f"(first run {n_points})")
-    return launches
+    return launches, st
 
 
 def phase_brute(scene, dev):
@@ -490,7 +504,171 @@ def phase_brute(scene, dev):
     print(f"[brute] K4 on the run's features ({args[0].shape[0]} x {args[1].shape[0]} capacity, "
           f"unconstrained): idx and dist bit-identical to K3 and to its plain version, "
           f"{unanswered} queries without an admissible target")
-    return k4_launches
+    return launches, k4_launches
+
+
+def phase_ba_modes(st, scene, dev):
+    """Bundle adjustment in modes "newton" and "reference" on phase 3's
+    filtered matches and input cameras."""
+    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust
+    from ssrlcv_tpu_torch.pipeline import stages as S
+
+    cams = S.cameras_from_refimages(scene.images, dev)
+    for mode in ("newton", "reference"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = bundle_adjust(st.matches, cams, st.config.ba, mode=mode)
+        e0, e1 = float(r.initial_error), float(r.final_error)
+        print(f"[ba-modes] {mode}: BA {e0:.6f} -> {e1:.6f} in {time.perf_counter() - t0:.3f} s "
+              f"(host clock); {int(r.cloud.mask.sum())} points")
+        if mode == "newton" and not e1 <= e0:
+            fail("BA newton: final error exceeds the initial error")
+        if mode == "reference" and e1 != e0:
+            fail("BA reference: the error changed")
+        if not torch.isfinite(r.cloud.points[r.cloud.mask]).all():
+            fail(f"BA {mode}: non-finite points")
+
+
+def _read_log(path: str, start: int):
+    """The log rows written from byte ``start`` on, split into (tag, text)."""
+    with open(path) as f:
+        f.seek(start)
+        return [tuple(line.rstrip("\n").split(",", 2)[1:]) for line in f if line.count(",") >= 2]
+
+
+def _log_value(rows, prefix):
+    """The text after ``prefix`` of the last info row that starts with it."""
+    hits = [text[len(prefix):] for tag, text in rows if tag == "info" and text.startswith(prefix)]
+    if not hits:
+        fail(f"the command line logged no '{prefix}' line")
+    return hits[-1]
+
+
+def _cli(argv, out_dir, counters):
+    """sfm.main(argv) in process, the kernels' counters reset just before;
+    returns (launches, host seconds, the log rows of this run)."""
+    from ssrlcv_tpu_torch.pipeline import sfm
+
+    log = os.path.join(out_dir, "ssrlcv.log")
+    start = os.path.getsize(log) if os.path.exists(log) else 0
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = sfm.main(argv + ["-o", out_dir, "--device", "cuda:0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"the command line returned {rc}")
+    return {fn.__name__: fn.launches for fn in counters}, seconds, _read_log(log, start)
+
+
+def _cli_report(tag, rows, seconds, launches):
+    """Print a command-line run's stage seconds, host-clock phases and BA
+    error; returns (stage seconds, (BA initial, BA final))."""
+    stages = json.loads(_log_value(rows, "stage seconds "))
+    took = [text for tag_, text in rows if tag_ == "info" and " took " in text]
+    ba = tuple(float(x) for x in _log_value(rows, "bundle adjust: ").split("->"))
+    print(f"[{tag}] stages (s, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; host clock: {'; '.join(took)}; main() {seconds:.3f} s")
+    print(f"[{tag}] BA {ba[0]!r} -> {ba[1]!r}; launches {launches}")
+    return stages, ba
+
+
+def _ply(out_dir, name):
+    from ssrlcv_tpu.io import ply
+
+    path = os.path.join(out_dir, f"{name}.ply")
+    if not os.path.exists(path):
+        fail(f"{path} was not written")
+    return ply.read_ply(path)["points"]
+
+
+def phase_cli_nview(scene3, counters):
+    """The command line on the three views, then resumed at stage 5."""
+    from ssrlcv_tpu_torch.synthetic import write_scene_dir
+
+    root = os.path.join("out", "chip_smoke_cli", "three_views")
+    shutil.rmtree(root, ignore_errors=True)
+    seed = write_scene_dir(scene3, os.path.join(root, "images"))
+    out, ckpt = os.path.join(root, "out"), os.path.join(root, "ckpt")
+    argv = ["-d", os.path.join(root, "images"), "-s", seed, "--epsilon", "25", "--delta", "5",
+            "-cpdir", ckpt]
+    launches, seconds, rows = _cli(argv, out, counters)
+    _, ba = _cli_report("cli-3", rows, seconds, launches)
+    with np.load(os.path.join(ckpt, "sfm-stage4", "state.npz")) as z:
+        views = z["matches.num_views"][z["matches.mask"]]
+    tracks = {int(v): int((views == v).sum()) for v in np.unique(views)}
+    pts = _ply(out, "ssrlcv-BA-final")
+    surf = np.median(scene3.surface_distance_m(pts)) if len(pts) else float("nan")
+    n_initial, n_filtered = len(_ply(out, "ssrlcv-initial")), len(_ply(out, "ssrlcv-filtered"))
+    print(f"[cli-3] tracks {n_initial} -> {n_filtered} after filtering, by view count {tracks}; "
+          f"BA cloud median distance to the true surface {surf:.3f} m")
+    # the seed pass of stage 2, one per query image of the pair sweep, one
+    # per pair
+    want_k3 = 1 + 2 + 3
+    if launches["orientation_histograms"] == 0 or launches["descriptor_histograms"] == 0:
+        fail("the command line did not launch K1 / K2")
+    if launches["best_target"] != want_k3:
+        fail(f"the command line launched K3 {launches['best_target']} times, not {want_k3}")
+    if n_filtered < MIN_POINTS:
+        fail(f"N-view reconstruction collapsed: {n_filtered} tracks after filtering")
+    if not ba[1] <= ba[0]:
+        fail("N-view BA final error exceeds the initial error")
+    if not np.isfinite(pts).all():
+        fail("non-finite points in the N-view BA cloud")
+    if not surf <= MAX_SURFACE_MEDIAN_M:
+        fail("the N-view cloud is too far from the true surface")
+
+    os.remove(os.path.join(ckpt, "sfm-stage5", "done"))
+    again, seconds, rows = _cli(argv, out, counters)
+    _, ba2 = _cli_report("cli-3 resumed", rows, seconds, again)
+    if _log_value(rows, "resuming at stage ") != "5":
+        fail("the command line did not resume at stage 5")
+    if any(again.values()):
+        fail(f"the resumed run launched kernels: {again}")
+    if abs(ba2[1] - ba[1]) > 1e-5 * abs(ba[1]):
+        fail(f"the resumed BA error {ba2[1]!r} differs from the first run's {ba[1]!r}")
+    return launches
+
+
+def phase_cli_pose(scene, counters):
+    """The command line with --pose on the phase-3 pair."""
+    from ssrlcv_tpu_torch.synthetic import write_scene_dir
+
+    root = os.path.join("out", "chip_smoke_cli", "two_views_pose")
+    shutil.rmtree(root, ignore_errors=True)
+    seed = write_scene_dir(scene, os.path.join(root, "images"))
+    out, ckpt = os.path.join(root, "out"), os.path.join(root, "ckpt")
+    argv = ["-d", os.path.join(root, "images"), "-s", seed, "--epsilon", "25", "--delta", "5",
+            "-cpdir", ckpt, "--pose"]
+    launches, seconds, rows = _cli(argv, out, counters)
+    stages, ba = _cli_report("cli-pose", rows, seconds, launches)
+    cams = []
+    for stage in (0, 1):
+        with np.load(os.path.join(ckpt, f"sfm-stage{stage}", "state.npz")) as z:
+            cams.append((z["cameras.cam_pos"], z["cameras.cam_rot"]))
+    moved = np.abs(cams[1][1][1] - cams[0][1][1])
+    pts = _ply(out, "ssrlcv-BA-final")
+    surf = np.median(scene.surface_distance_m(pts)) if len(pts) else float("nan")
+    print(f"[cli-pose] camera 1 rotation {cams[0][1][1].tolist()} -> {cams[1][1][1].tolist()} "
+          f"by the pose stage; points {len(pts)}; BA cloud median distance to the true surface "
+          f"{surf:.3f} m (not gated: the pose has no anchor)")
+    # seed + constrained pass in the pose stage, the same two in stage 2
+    if launches["best_target"] != 4 or "pose" not in stages:
+        fail(f"the pose stage did not run its K3 passes: launches {launches}, stages {stages}")
+    if launches["orientation_histograms"] == 0 or launches["descriptor_histograms"] == 0:
+        fail("the command line did not launch K1 / K2")
+    if not moved.any():
+        fail("the pose stage left camera 1 as it was")
+    if len(pts) == 0:
+        fail("the --pose run kept no points")
+    if not ba[1] <= ba[0]:
+        fail("--pose run: BA final error exceeds the initial error")
+    if not np.isfinite(pts).all():
+        fail("non-finite points in the --pose BA cloud")
+    return launches
 
 
 def phase_everest(dev):
@@ -535,22 +713,41 @@ def main():
         raise SystemExit(1)
 
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
     phase_env()
     phase_build()
     t0 = time.perf_counter()
-    scene = make_scene(SEED, SIZE)
-    print(f"[scene] synthetic pair + seed image at {SIZE}^2 (seed {SEED}) in "
+    scene3 = make_scene(SEED, SIZE, n_views=3)
+    # images 0 and 1 and the seed image of the 3-view scene are the 2-view
+    # scene's
+    scene = dataclasses.replace(scene3, images=scene3.images[:2])
+    print(f"[scene] synthetic 3 views + seed image at {SIZE}^2 (seed {SEED}) in "
           f"{time.perf_counter() - t0:.2f} s")
 
+    from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+
+    counters = (orientation_histograms, descriptor_histograms, best_target)
     recs = {**phase_kernels_features(scene, dev), **phase_kernels_match(scene, dev),
             **phase_gather(dev)}
-    launches = phase_main_path(scene, dev)
-    for name in launches:
-        recs[name].update(phase="3: main path", launches=launches[name])
+    by_phase = {}
+    by_phase["3"], main_state = phase_main_path(scene, dev)
+    by_phase["3b"], k4_brute = phase_brute(scene, dev)
     recs["best_target_mma"].update(
         phase="2 + 3b: best_target_mma on the main path's and the brute path's features",
-        launches=recs["best_target_mma"]["launches"] + phase_brute(scene, dev))
+        launches=recs["best_target_mma"]["launches"] + k4_brute)
+    phase_ba_modes(main_state, scene, dev)
     phase_everest(dev)
+    by_phase["5"] = phase_cli_nview(scene3, counters)
+    by_phase["6"] = phase_cli_pose(scene, counters)
+    for fn in counters:
+        name = fn.__name__
+        recs[name].update(phase="3, 3b, 5, 6: main path, brute path, command line (3 views; "
+                                "2 views with --pose)",
+                          launches=sum(p[name] for p in by_phase.values()),
+                          launches_by_phase={k: p[name] for k, p in by_phase.items()})
+    print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s after start")
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -1,5 +1,5 @@
 """Camera geometry: rotations, ray lifting, projections, epipolar segments,
-fundamental matrices.
+fundamental matrices, 2-D point distances.
 
 Counterpart of ``ssrlcv_tpu/core/camera_math.py``; the same conventions:
 ``rotation_matrix(angles)`` builds R = Rz(z) @ Ry(y) @ Rx(x), a camera's
@@ -48,6 +48,33 @@ def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def rotate_point(point: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """Apply the XYZ-Euler rotation R(angles) @ point (broadcasts)."""
     return _matvec(rotation_matrix(angles), point)
+
+
+def axis_rotations(R: torch.Tensor) -> torch.Tensor:
+    """XYZ Euler angles of rotation matrices (..., 3, 3) -> (..., 3)."""
+    x = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    y = torch.atan2(-R[..., 2, 0], R[..., 2, 2] / torch.cos(x))
+    z = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([x, y, z], dim=-1)
+
+
+def rotate_point_arbitrary(point: torch.Tensor, axis: torch.Tensor,
+                           angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation of points (..., 3) by ``angle`` about ``axis``."""
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    angle = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    c, s = torch.cos(angle), torch.sin(angle)
+    k = 1.0 - c
+    ax, ay, az = axis[..., 0], axis[..., 1], axis[..., 2]
+    R = torch.stack(
+        [
+            torch.stack([ax * ax * k + c, ax * ay * k - az * s, ax * az * k + ay * s], -1),
+            torch.stack([ax * ay * k + az * s, ay * ay * k + c, ay * az * k - ax * s], -1),
+            torch.stack([ax * az * k - ay * s, ay * az * k + ax * s, az * az * k + c], -1),
+        ],
+        dim=-2,
+    )
+    return _matvec(R, point)
 
 
 def effective_dpix(foc: torch.Tensor, fov_x: torch.Tensor, size_x: torch.Tensor) -> torch.Tensor:
@@ -171,3 +198,19 @@ def fundamental_from_cameras(cam_rot0, cam_pos0, cam_rot1, cam_pos1, foc_pixels,
     E = skew(t_rel) @ R_rel
     K_inv = torch.linalg.inv(K)
     return K_inv.transpose(-1, -2) @ E @ K_inv
+
+
+def point_line_distance_2d(pts: torch.Tensor, lines: torch.Tensor) -> torch.Tensor:
+    """Distance of 2-D points (..., 2) to homogeneous lines (..., 3)."""
+    num = torch.abs(lines[..., 0] * pts[..., 0] + lines[..., 1] * pts[..., 1] + lines[..., 2])
+    den = torch.sqrt(lines[..., 0] ** 2 + lines[..., 1] ** 2)
+    return num / torch.clamp(den, min=1e-12)
+
+
+def point_segment_distance_2d(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance of points p (..., 2) to the 2-D segments [a, b] (..., 2)."""
+    ab = b - a
+    ap = p - a
+    denom = torch.clamp(torch.sum(ab * ab, dim=-1), min=1e-20)
+    t = torch.clamp(torch.sum(ap * ab, dim=-1) / denom, 0.0, 1.0)
+    return torch.linalg.norm(p - (a + t[..., None] * ab), dim=-1)

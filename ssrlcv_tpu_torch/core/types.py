@@ -9,6 +9,7 @@ Field names and layouts equal the JAX pytrees of ``ssrlcv_tpu.core.types``
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -56,6 +57,15 @@ class Cameras(_TensorStruct):
     def num_cameras(self) -> int:
         return self.cam_pos.shape[0]
 
+    @classmethod
+    def stack(cls, cams: list) -> "Cameras":
+        """Concatenate camera batches along the image axis."""
+        return cls(**{f.name: torch.cat([getattr(c, f.name) for c in cams])
+                      for f in dataclasses.fields(cls)})
+
+    def __getitem__(self, idx) -> "Cameras":
+        return type(self)(**{f.name: getattr(self, f.name)[idx] for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass
 class FeatureSet(_TensorStruct):
@@ -100,8 +110,43 @@ class MatchSet(_TensorStruct):
     def capacity(self) -> int:
         return self.kp_loc.shape[0]
 
+    @property
+    def max_views(self) -> int:
+        return self.kp_loc.shape[1]
+
     def count(self) -> int:
         return int(self.mask.sum())
+
+    @classmethod
+    def empty(cls, capacity: int, max_views: int = 2, device=None) -> "MatchSet":
+        return cls(
+            kp_loc=torch.zeros((capacity, max_views, 2), dtype=torch.float32, device=device),
+            kp_parent=torch.full((capacity, max_views), -1, dtype=torch.int32, device=device),
+            num_views=torch.zeros((capacity,), dtype=torch.int32, device=device),
+            mask=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
+
+    @classmethod
+    def from_flat(cls, kp_parent_flat: np.ndarray, kp_loc_flat: np.ndarray, mm_num: np.ndarray,
+                  mm_index: np.ndarray, capacity: Optional[int] = None,
+                  max_views: Optional[int] = None, device=None) -> "MatchSet":
+        """Build from the flat KeyPoint / MultiMatch layout: track i holds
+        the ``mm_num[i]`` keypoints from ``mm_index[i]`` on."""
+        t = len(mm_num)
+        v = int(max_views or (mm_num.max() if t else 2))
+        cap = int(capacity or t)
+        kp_loc = np.zeros((cap, v, 2), np.float32)
+        kp_par = np.full((cap, v), -1, np.int32)
+        nviews = np.zeros((cap,), np.int32)
+        mask = np.zeros((cap,), bool)
+        for i in range(t):
+            n, s = int(mm_num[i]), int(mm_index[i])
+            kp_loc[i, :n] = kp_loc_flat[s:s + n]
+            kp_par[i, :n] = kp_parent_flat[s:s + n]
+            nviews[i] = n
+            mask[i] = True
+        return cls.from_numpy(device=device, kp_loc=kp_loc, kp_parent=kp_par,
+                              num_views=nviews, mask=mask)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,10 @@
-"""2-view skew-line midpoint triangulation and its linear-error objective.
+"""Triangulation: 2-view skew-line midpoints with their linear-error
+objective, and N-view least-squares line intersection.
 
-Counterpart of the 2-view part of ``ssrlcv_tpu/geometry/triangulation.py``.
-Reductions are single deterministic ``torch.sum`` calls.
+Counterpart of ``ssrlcv_tpu/geometry/triangulation.py``.  Reductions are
+single deterministic ``torch.sum`` calls.  Everything here runs under
+``torch.func`` (bundle adjustment differentiates it), so nothing is updated
+in place.
 """
 
 from __future__ import annotations
@@ -66,11 +69,66 @@ def two_view_triangulate(bundles: Bundles, cutoff: float = math.inf):
     return PointCloud(points=point, errors=err_masked, mask=valid), total
 
 
-def triangulate_matches(matches, cameras, cutoff: float = math.inf):
-    """Bundle generation + 2-view triangulation."""
+def n_view_triangulate(bundles: Bundles, reference_error_mode: bool = False):
+    """Least-squares intersection of each track's lines: S = sum_i (v_i v_i^T
+    - I), C = sum_i (v_i v_i^T - I) p_i over the track's views, point =
+    S^-1 C.  A singular S (|det| <= 1e-20) masks the track.
+
+    The per-point error is the mean squared point-line distance over the
+    track's views; with ``reference_error_mode`` it is the last view's
+    squared distance / numLines (the reference kernel overwrites instead of
+    accumulating).  Returns (PointCloud, total error).
+
+    The determinant only decides the mask and the solve only sees
+    well-posed systems, so a singular track's NaN never reaches a
+    derivative.  The distance is sqrt(sum(d * d)), as the JAX package's
+    norm, so derivatives agree with it where d = 0 too.
+    """
+    vec, pnt = bundles.vec, bundles.pnt
+    v = vec / torch.clamp(torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True)), min=1e-20)
+    view_mask = (torch.arange(vec.shape[1], device=vec.device)[None, :]
+                 < bundles.num_views[:, None])                           # (T, V)
+    w = view_mask[..., None].to(v.dtype)
+    eye = torch.eye(3, dtype=v.dtype, device=v.device)
+    tmp = (v[..., :, None] * v[..., None, :] - eye) * w[..., None]      # (T, V, 3, 3)
+    S = torch.sum(tmp, dim=1)
+    C = torch.sum(torch.sum(tmp * (pnt * w)[..., None, :], dim=-1), dim=1)
+
+    ok = torch.abs(torch.linalg.det(S.detach())) > 1e-20
+    S_safe = torch.where(ok[:, None, None], S, eye)
+    point = torch.linalg.solve(S_safe, C[..., None]).squeeze(-1)
+    point = torch.where(ok[:, None], point, 0.0)
+
+    p1 = pnt
+    p2 = pnt + v * 1000.0
+    d = _cross(point[:, None, :] - p1, point[:, None, :] - p2)
+    c = p2 - p1
+    dist = (torch.sqrt(torch.sum(d * d, dim=-1))
+            / torch.clamp(torch.sqrt(torch.sum(c * c, dim=-1)), min=1e-20))
+    sq = (dist ** 2) * view_mask
+    nv = torch.clamp(bundles.num_views.to(v.dtype), min=1.0)
+    if reference_error_mode:
+        last = torch.clamp(bundles.num_views - 1, min=0).to(torch.int64)
+        err = torch.gather(sq, 1, last[:, None])[:, 0] / nv
+    else:
+        err = torch.sum(sq, dim=1) / nv
+    valid = bundles.mask & ok
+    err = torch.where(valid, err, 0.0)
+    return PointCloud(points=point, errors=err, mask=valid), torch.sum(err)
+
+
+def triangulate(bundles: Bundles, two_view: bool, cutoff: float = math.inf):
+    """The pipeline's 2-view / N-view switch (``cutoff`` is 2-view only)."""
+    if two_view:
+        return two_view_triangulate(bundles, cutoff)
+    return n_view_triangulate(bundles)
+
+
+def triangulate_matches(matches, cameras, two_view: bool = True, cutoff: float = math.inf):
+    """Bundle generation + triangulation."""
     from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
 
-    return two_view_triangulate(generate_bundles(matches, cameras), cutoff)
+    return triangulate(generate_bundles(matches, cameras), two_view, cutoff)
 
 
 def linear_error_objective(bundles: Bundles) -> torch.Tensor:

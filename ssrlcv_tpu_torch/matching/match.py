@@ -79,9 +79,12 @@ def _threshold(idx, dist, q_mask, params: MatchParams, seed_dist,
 
 def match_double_constrained(query: FeatureSet, target: FeatureSet, cameras: Cameras,
                              query_index: int, target_index: int, params: MatchParams,
-                             seed_dist: Optional[torch.Tensor] = None) -> DMatches:
+                             seed_dist: Optional[torch.Tensor] = None,
+                             index_only: bool = False) -> DMatches:
     """Earth-geometry epipolar-segment constrained matching of ``query``
-    features against ``target`` features (the constrained K3 pass)."""
+    features against ``target`` features (the constrained K3 pass).
+    index_only: the unsquared relative-seed threshold of the index-only
+    kernel family, which the N-view pair sweep uses."""
     qi, ti = query_index, target_index
     P = camera_math.projection_matrix(
         cameras.cam_pos[ti], cameras.cam_rot[ti], cameras.foc[ti],
@@ -91,7 +94,7 @@ def match_double_constrained(query: FeatureSet, target: FeatureSet, cameras: Cam
         cameras.dpix[qi], cameras.size[qi], cameras.ecef_offset[qi], P, params.delta)
     idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
                             p1.contiguous(), p2.contiguous(), params.epsilon, target.mask)
-    return _threshold(idx, dist, query.mask, params, seed_dist)
+    return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
 
 
 def match_brute_force(query: FeatureSet, target: FeatureSet, params: MatchParams,

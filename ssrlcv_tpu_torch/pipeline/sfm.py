@@ -1,0 +1,113 @@
+"""SfM command-line entry point of the port.
+
+Counterpart of ``ssrlcv_tpu/pipeline/sfm.py``: parse the arguments, load the
+directory's images and params.csv, run the six-stage pipeline with
+stage-door checkpoint/resume on one device, and write the initial, filtered
+and bundle-adjusted clouds as PLY files.  SIGINT flushes the log and exits;
+the stage checkpoints on disk stay resumable.
+
+Usage:
+    python -m ssrlcv_tpu_torch.pipeline.sfm -d <image_dir> [-s <seed_image>]
+        [--epsilon E] [--delta D] [-cpdir DIR] [--pose] [-np] [-o DIR]
+        [--device DEV]
+
+``--device`` defaults to ``cuda:0``; without a CUDA device the run stops
+(``--device cpu`` runs on the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+
+import torch
+
+from ssrlcv_tpu.config import MatchParams, PipelineConfig
+from ssrlcv_tpu.logging import logger
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The JAX command line's flags and defaults, plus ``--device``."""
+    p = argparse.ArgumentParser(prog="ssrlcv-sfm-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-d", "--directory", required=True, help="directory of images + params.csv")
+    p.add_argument("-i", "--image", action="append", default=[],
+                   help="individual image path (accepted and unused, as by the JAX command line)")
+    p.add_argument("-s", "--seed", default=None, help="seed image path")
+    p.add_argument("--epsilon", type=float, default=5.0, help="epipolar tube half-width, px")
+    p.add_argument("--delta", type=float, default=0.0, help="Earth-radius slack, km")
+    p.add_argument("-cpdir", "--checkpoint-dir", default=None, help="checkpoint/resume directory")
+    p.add_argument("--pose", action="store_true",
+                   help="run pose estimation (stage 1) on a 2-image directory")
+    p.add_argument("-np", "--noparams", action="store_true", help="skip params.csv")
+    p.add_argument("-o", "--output-dir", default="out")
+    p.add_argument("--mesh", default=None, metavar="DATAxFEAT",
+                   help="multi-device stages: not ported (ROADMAP.md 1.16)")
+    p.add_argument("--device", default="cuda:0", help="torch device (default cuda:0)")
+    return p.parse_args(argv)
+
+
+def _device(spec: str) -> torch.device:
+    dev = torch.device(spec)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {spec}: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+    return dev
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError("--mesh: multi-device stages are not ported (ROADMAP.md 1.16)")
+    device = _device(args.device)
+    logger.close()  # a log opened before this run goes on in its own file
+    logger.log_dir = args.output_dir
+    logger.path = f"{args.output_dir}/ssrlcv.log"
+    logger.log_state("start")
+    logger.start_background_logging(1.0)
+
+    def safe_shutdown(signum, frame):
+        logger.log_state("SIGINT")
+        logger.close()
+        sys.exit(130)
+
+    previous = signal.signal(signal.SIGINT, safe_shutdown)
+    try:
+        return _run(args, device)
+    finally:
+        signal.signal(signal.SIGINT, previous)
+        logger.log_state("end")
+        logger.close()
+
+
+def _run(args: argparse.Namespace, device: torch.device) -> int:
+    from ssrlcv_tpu_torch.features.sift import generate_features
+    from ssrlcv_tpu_torch.io.images import load_directory, load_image_with_params
+    from ssrlcv_tpu_torch.pipeline.stages import (STAGE_MATCHING, PipelineState, first_stage,
+                                                  run_pipeline)
+
+    config = PipelineConfig(output_dir=args.output_dir, checkpoint_dir=args.checkpoint_dir,
+                            do_pose=args.pose, no_params=args.noparams).replace(
+        match=MatchParams(epsilon=args.epsilon, delta=args.delta))
+    with logger.phase("load_images"):
+        images = load_directory(args.directory, no_params=args.noparams)
+    if len(images) < 2:
+        logger.err(f"need at least 2 images, found {len(images)}")
+        return 1
+    logger.info(f"loaded {len(images)} images from {args.directory} onto {device}")
+
+    state = PipelineState(config=config, images=images, device=device)
+    # seed features feed the pose and matching stages only: a run resuming
+    # past matching does not need them
+    if args.seed and first_stage(state) <= STAGE_MATCHING:
+        seed_img = load_image_with_params(args.seed, -1, no_params=True)
+        with logger.phase("sift_seed"):
+            state.seed_features = generate_features(seed_img.pixels, config.sift, image_id=-1,
+                                                    device=device)
+    run_pipeline(state)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

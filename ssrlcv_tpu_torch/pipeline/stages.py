@@ -1,38 +1,49 @@
-"""The 2-view reconstruction pipeline.
+"""The reconstruction pipeline with stage-door checkpoint / resume.
 
-Counterpart of the 2-view branches of ``ssrlcv_tpu/pipeline/stages.py``:
+Counterpart of ``ssrlcv_tpu/pipeline/stages.py``, with its numbering:
 
-  0 feature generation -> 2 matching -> 3 triangulation -> 4 filtering
-  -> 5 bundle adjustment
+  0 feature generation -> 1 pose estimation (optional, 2 views) -> 2 matching
+  -> 3 triangulation -> 4 filtering -> 5 bundle adjustment
 
-Each stage is a function over a ``PipelineState``; ``run_pipeline`` runs
-them in order on the state's device and writes the initial, filtered and
-bundle-adjusted clouds as PLY files under ``config.output_dir``.  Pinhole
-cameras and two images only; pose estimation (stage 1), N-view, pushbroom
-cameras, mesh sharding and checkpoint/resume are not ported yet.
+Each stage is a function over a ``PipelineState``; with two images the
+2-view branch of each stage runs, with more the N-view branch.
+``run_pipeline`` runs them in order on the state's device, writes the
+initial, filtered and bundle-adjusted clouds as PLY files under
+``config.output_dir`` and, with ``config.checkpoint_dir``, checkpoints every
+stage and resumes at the first stage without a ``done`` marker.  Pinhole
+cameras only; multi-device meshes are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
-from typing import Iterable, Optional
+from typing import Optional
 
-import numpy as np
 import torch
 
-from ssrlcv_tpu.config import PipelineConfig
+from ssrlcv_tpu.config import MatchParams, PipelineConfig
 from ssrlcv_tpu.io import ply
-from ssrlcv_tpu.io.refdata import RefImage
 from ssrlcv_tpu.logging import logger
 from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet, PointCloud
+from ssrlcv_tpu_torch.io import checkpoint as ckpt
+from ssrlcv_tpu_torch.io.images import cameras_from_refimages  # noqa: F401  (re-exported)
+
+STAGE_FEATURES = 0
+STAGE_POSE = 1
+STAGE_MATCHING = 2
+STAGE_TRIANGULATION = 3
+STAGE_FILTERING = 4
+STAGE_BUNDLE_ADJUST = 5
+NUM_STAGES = 6
 
 
 @dataclasses.dataclass
 class PipelineState:
     config: PipelineConfig
-    images: list                                   # list[RefImage], two of them
+    images: list                                   # list[RefImage]
     device: torch.device = torch.device("cpu")
     cameras: Optional[Cameras] = None
     features: Optional[list] = None                # list[FeatureSet]
@@ -44,35 +55,20 @@ class PipelineState:
     stage_seconds: dict = dataclasses.field(default_factory=dict)
 
 
-def cameras_from_refimages(images: Iterable[RefImage], device=None) -> Cameras:
-    """Stack host RefImages into batched Cameras on ``device``."""
-    ims = list(images)
-    return Cameras.from_numpy(
-        device=device,
-        cam_pos=np.stack([im.cam_pos for im in ims]).astype(np.float32),
-        cam_rot=np.stack([im.cam_rot for im in ims]).astype(np.float32),
-        fov=np.stack([im.fov for im in ims]).astype(np.float32),
-        foc=np.array([im.foc for im in ims], np.float32),
-        dpix=np.stack([im.dpix for im in ims]).astype(np.float32),
-        size=np.array([[im.size[0], im.size[1]] for im in ims], np.int32),
-        ecef_offset=np.stack([im.ecef_offset for im in ims]).astype(np.float32),
-        timestamp=np.array([im.timestamp for im in ims], np.int64),
-    )
+def _two_view(state: PipelineState) -> bool:
+    return len(state.images) == 2
 
 
-def _check_two_view(state: PipelineState):
-    if len(state.images) != 2:
-        raise NotImplementedError(f"only the 2-view pipeline is ported; got "
-                                  f"{len(state.images)} images")
-    if any(im.is_pushbroom for im in state.images):
-        raise NotImplementedError("pushbroom cameras are not ported")
+def _pose_runs(state: PipelineState) -> bool:
+    return state.config.do_pose and _two_view(state)
 
 
 def do_feature_generation(state: PipelineState) -> PipelineState:
     """Stage 0: cameras, then SIFT per image."""
     from ssrlcv_tpu_torch.features.sift import generate_features_many
 
-    _check_two_view(state)
+    if any(im.is_pushbroom for im in state.images):
+        raise NotImplementedError("pushbroom cameras are not ported (ROADMAP.md 1.14)")
     state.cameras = cameras_from_refimages(state.images, state.device)
     state.features = generate_features_many(
         [im.pixels for im in state.images], state.config.sift,
@@ -82,32 +78,63 @@ def do_feature_generation(state: PipelineState) -> PipelineState:
     return state
 
 
-def do_feature_matching(state: PipelineState) -> PipelineState:
-    """Stage 2: seed distances (when seed features are set), then mode
-    "double" matches double-constrained and every other mode brute force (as
-    the JAX stage does, "fmatrix" included), then match-set assembly."""
+def do_pose_estimation(state: PipelineState) -> PipelineState:
+    """Stage 1 (with ``do_pose`` and two images): refine image 1's pose by LM
+    on a match set made with the pose thresholds, and write the refined
+    camera back into ``state.images[1]``."""
+    if not _pose_runs(state):
+        return state
     from ssrlcv_tpu_torch.matching import match as M
+    from ssrlcv_tpu_torch.pose.lm import refine_relative_pose
+
+    p = state.config.pose
+    mp = MatchParams(relative_threshold=p.relative_threshold,
+                     absolute_threshold=p.absolute_threshold, epsilon=p.epsilon, delta=p.delta)
+    f0, f1 = state.features
+    sd = None
+    if state.seed_features is not None:
+        sd = M.seed_distances(f0, state.seed_features)
+    dm = M.match_double_constrained(f0, f1, state.cameras, 0, 1, mp, seed_dist=sd)
+    ms = M.matches_to_matchset(dm, f0, f1, 0, 1)
+    with logger.phase("pose_lm"):
+        state.cameras = refine_relative_pose(ms, state.cameras, p)
+    state.images[1].cam_pos = state.cameras.cam_pos[1].cpu().numpy()
+    state.images[1].cam_rot = state.cameras.cam_rot[1].cpu().numpy()
+    return state
+
+
+def do_feature_matching(state: PipelineState) -> PipelineState:
+    """Stage 2: seed distances of image 0 (when seed features are set); with
+    two images mode "double" matches double-constrained and every other mode
+    brute force (as the JAX stage does, "fmatrix" included); with more, the
+    exhaustive pair sweep and track building."""
+    from ssrlcv_tpu_torch.matching import match as M
+    from ssrlcv_tpu_torch.matching.tracks import generate_matches_exhaustive
 
     cfg = state.config.match
     sd = None
     if state.seed_features is not None:
         sd = M.seed_distances(state.features[0], state.seed_features)
         state.seed_distances = sd
-    f0, f1 = state.features
-    if cfg.mode == "double":
-        dm = M.match_double_constrained(f0, f1, state.cameras, 0, 1, cfg, seed_dist=sd)
+    if _two_view(state):
+        f0, f1 = state.features
+        if cfg.mode == "double":
+            dm = M.match_double_constrained(f0, f1, state.cameras, 0, 1, cfg, seed_dist=sd)
+        else:
+            dm = M.match_brute_force(f0, f1, cfg, seed_dist=sd)
+        state.matches = M.matches_to_matchset(dm, f0, f1, 0, 1)
     else:
-        dm = M.match_brute_force(f0, f1, cfg, seed_dist=sd)
-    state.matches = M.matches_to_matchset(dm, f0, f1, 0, 1)
+        state.matches = generate_matches_exhaustive(state.features, state.cameras, cfg,
+                                                    seed_features=state.seed_features)
     logger.info(f"total matches: {state.matches.count()}")
     return state
 
 
 def do_triangulation(state: PipelineState) -> PipelineState:
-    """Stage 3: bundles + 2-view triangulation."""
+    """Stage 3: bundles + 2-view or N-view triangulation."""
     from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
 
-    pc, err = triangulate_matches(state.matches, state.cameras)
+    pc, err = triangulate_matches(state.matches, state.cameras, _two_view(state))
     state.cloud = pc
     logger.info(f"initial cloud: {int(pc.mask.sum())} points, error {float(err):.6f}")
     _write_cloud(state, "ssrlcv-initial")
@@ -115,17 +142,21 @@ def do_triangulation(state: PipelineState) -> PipelineState:
 
 
 def do_filtering(state: PipelineState) -> PipelineState:
-    """Stage 4: linear cutoff, then the deterministic statistical filter;
-    re-triangulate."""
+    """Stage 4: the linear cutoff (2 views only), then the deterministic
+    statistical filter; re-triangulate."""
     from ssrlcv_tpu_torch.geometry import filters as F
     from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
 
     cfg = state.config.filter
-    ms = F.linear_cutoff_filter(state.matches, state.cameras, cfg.linear_cutoff_km)
+    two_view = _two_view(state)
+    ms = state.matches
+    if two_view:
+        ms = F.linear_cutoff_filter(ms, state.cameras, cfg.linear_cutoff_km)
     jump = max(int(round(1.0 / cfg.sample_fraction)), 1)
-    ms = F.deterministic_statistical_filter(ms, state.cameras, cfg.statistical_sigma, jump)
+    ms = F.deterministic_statistical_filter(ms, state.cameras, cfg.statistical_sigma, jump,
+                                            two_view=two_view)
     state.matches = ms
-    pc, err = triangulate_matches(ms, state.cameras)
+    pc, err = triangulate_matches(ms, state.cameras, two_view)
     state.cloud = pc
     logger.info(f"filtered cloud: {int(pc.mask.sum())} points, error {float(err):.6f}")
     _write_cloud(state, "ssrlcv-filtered")
@@ -133,16 +164,19 @@ def do_filtering(state: PipelineState) -> PipelineState:
 
 
 def do_bundle_adjust(state: PipelineState) -> PipelineState:
-    """Stage 5: 2-view Levenberg-Marquardt bundle adjustment."""
-    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust_two_view
+    """Stage 5: 2-view Levenberg-Marquardt, or N-view, bundle adjustment."""
+    if _two_view(state):
+        from ssrlcv_tpu_torch.ba.two_view import bundle_adjust
 
-    result = bundle_adjust_two_view(state.matches, state.cameras,
-                                    iterations=state.config.ba.iterations, mode="lm",
-                                    fix_camera0=state.config.ba.fixed_camera)
+        result = bundle_adjust(state.matches, state.cameras, state.config.ba)
+    else:
+        from ssrlcv_tpu_torch.ba.nview import bundle_adjust_nview
+
+        result = bundle_adjust_nview(state.matches, state.cameras, state.config.ba)
     state.cameras = result.cameras
     state.cloud = result.cloud
     state.ba_error = (float(result.initial_error), float(result.final_error))
-    logger.info(f"bundle adjust: {state.ba_error[0]:.6f} -> {state.ba_error[1]:.6f}")
+    logger.info(f"bundle adjust: {state.ba_error[0]!r} -> {state.ba_error[1]!r}")
     _write_cloud(state, "ssrlcv-BA-final")
     return state
 
@@ -156,6 +190,7 @@ def _write_cloud(state: PipelineState, name: str):
 
 STAGES = [
     ("features", do_feature_generation),
+    ("pose", do_pose_estimation),
     ("matching", do_feature_matching),
     ("triangulation", do_triangulation),
     ("filtering", do_filtering),
@@ -163,31 +198,96 @@ STAGES = [
 ]
 
 
+def first_stage(state: PipelineState) -> int:
+    """The stage ``run_pipeline`` starts at: the first without a done marker
+    under the checkpoint directory, 0 without one."""
+    root = state.config.checkpoint_dir
+    return ckpt.first_unfinished_stage(root, NUM_STAGES) if root else 0
+
+
 def run_pipeline(state: PipelineState, device=None) -> PipelineState:
-    """Run the stages in order on ``device`` (default: the state's).  Each
-    stage's seconds land in ``state.stage_seconds``: on a CUDA device from
-    CUDA events read after one synchronisation at the end, so the stages
-    run without added synchronisation."""
+    """Run the stages in order on ``device`` (default: the state's), from
+    the last checkpoint when the config names a checkpoint directory.  Each
+    stage that runs puts its seconds in ``state.stage_seconds`` (the pose
+    stage only when it estimates a pose): on a CUDA device from CUDA events
+    read after one synchronisation at the end, so the stages run without
+    added synchronisation."""
     if device is not None:
         state.device = torch.device(device)
+    root = state.config.checkpoint_dir
+    start = first_stage(state)
+    if start > 0:
+        logger.info(f"resuming at stage {start}")
+        _restore(state, root, start)
     cuda = state.device.type == "cuda"
     marks = []
-    for name, fn in STAGES:
-        logger.log_state(f"{name}:begin")
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            stream = torch.cuda.current_stream(state.device)
-            start.record(stream)
+    for i in range(start, NUM_STAGES):
+        name, fn = STAGES[i]
+        logger.log_state(f"stage{i}:{name}:begin")
+        if i == STAGE_POSE and not _pose_runs(state):
             state = fn(state)
-            end.record(stream)
-            marks.append((name, start, end))
+        elif cuda:
+            start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            stream = torch.cuda.current_stream(state.device)
+            start_ev.record(stream)
+            state = fn(state)
+            end_ev.record(stream)
+            marks.append((name, start_ev, end_ev))
         else:
             t0 = time.perf_counter()
             state = fn(state)
             state.stage_seconds[name] = time.perf_counter() - t0
-        logger.log_state(f"{name}:end")
+        logger.log_state(f"stage{i}:{name}:end")
+        if root:
+            _checkpoint(state, root, i)
     if cuda:
         torch.cuda.synchronize(state.device)
-        for name, start, end in marks:
-            state.stage_seconds[name] = start.elapsed_time(end) / 1000.0
+        for name, start_ev, end_ev in marks:
+            state.stage_seconds[name] = start_ev.elapsed_time(end_ev) / 1000.0
+    logger.info(f"stage seconds {json.dumps(state.stage_seconds)}")
     return state
+
+
+def _checkpoint(state: PipelineState, root: str, stage: int):
+    tree = {}
+    if state.cameras is not None:
+        tree["cameras"] = state.cameras
+    if state.features is not None and stage <= STAGE_POSE:
+        for j, f in enumerate(state.features):
+            tree[f"features{j}"] = f
+    meta = {"stage": stage}
+    if state.matches is not None and stage >= STAGE_MATCHING:
+        tree["matches"] = state.matches
+        meta["match_capacity"] = state.matches.capacity
+        meta["match_views"] = state.matches.max_views
+    if state.cloud is not None and stage >= STAGE_TRIANGULATION:
+        tree["cloud"] = state.cloud
+    ckpt.save_stage(root, stage, "state", tree, meta=meta)
+
+
+def _restore(state: PipelineState, root: str, start: int):
+    """Rebuild the state from the last finished stage's checkpoint, on the
+    state's device."""
+    last, dev = start - 1, state.device
+    like = {"cameras": cameras_from_refimages(state.images)}
+    if last <= STAGE_POSE:
+        cap = state.config.sift.max_keypoints
+        for j, im in enumerate(state.images):
+            like[f"features{j}"] = FeatureSet.empty(cap, parent=im.id)
+    if last >= STAGE_MATCHING:
+        meta = ckpt.load_stage_meta(root, last) or {}
+        if "match_capacity" not in meta:
+            raise ValueError(f"{ckpt.stage_dir(root, last)}: meta.json has no match_capacity")
+        like["matches"] = MatchSet.empty(meta["match_capacity"], meta.get("match_views", 2))
+    if last >= STAGE_TRIANGULATION:
+        t = like["matches"].capacity
+        like["cloud"] = PointCloud(points=torch.zeros((t, 3)), errors=torch.zeros((t,)),
+                                   mask=torch.zeros((t,), dtype=torch.bool))
+    loaded = ckpt.load_stage(root, last, "state", like, device=dev)
+    state.cameras = loaded["cameras"]
+    if last <= STAGE_POSE:
+        state.features = [loaded[f"features{j}"] for j in range(len(state.images))]
+    if last >= STAGE_MATCHING:
+        state.matches = loaded["matches"]
+    if last >= STAGE_TRIANGULATION:
+        state.cloud = loaded["cloud"]

@@ -1,12 +1,13 @@
-"""A seeded synthetic 2-view scene at orbital scale: a test and smoke-run
-fixture, not a pipeline feature.
+"""A seeded synthetic 2- or 3-view scene at orbital scale: a test and
+smoke-run fixture, not a pipeline feature.
 
 The scene is a sphere of radius 6371 km (inside the Earth-radius band the
 double-constrained matcher searches, ``ssrlcv_tpu.config``) carrying a
 multi-octave value-noise albedo defined on ground coordinates, so every view
 sees the same surface.  Two pinhole cameras about 400 km above the ground and
-about 70 km apart both aim at one ground point; a third camera aims at a
-ground point about 200 km away and gives the seed image.  Optics follow the
+about 70 km apart both aim at one ground point; with three views a third
+camera, halfway between them, aims at the same point.  Another camera aims
+at a ground point about 200 km away and gives the seed image.  Optics follow the
 JAX package's pose-test rig: focal length 0.8593 and a field of view of
 0.0418879 rad at 1024 px (the field of view scales with ``size``, so the
 ground sample distance, about 16 m, is the same at every size).
@@ -14,12 +15,14 @@ ground sample distance, about 16 m, is the same at every size).
 Each pixel's ray is intersected with the sphere in float64 and samples the
 texture with 2x2 supersampling; the mean is quantised to uint8.  Everything
 is numpy, made from ``numpy.random.default_rng(seed)`` and an integer hash
-of the seed; nothing depends on global random state.
+of the seed; nothing depends on global random state.  ``write_scene_dir``
+writes a scene as the command line reads it: PNG images and a params.csv.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -39,7 +42,7 @@ _NOISE_GAIN = 0.7
 
 @dataclasses.dataclass
 class SyntheticScene:
-    images: list          # [RefImage, RefImage]: the 2-view pair (ids 0, 1)
+    images: list          # [RefImage, ...]: the views (ids 0, 1[, 2])
     seed_image: RefImage  # id -1
     radius_km: float
 
@@ -172,8 +175,11 @@ def _camera(target: np.ndarray, along: np.ndarray, offset_km: float, size: int,
         ecef_offset=ecef_offset.astype(np.float32), is_pushbroom=False)
 
 
-def make_scene(seed: int = 0, size: int = 1024) -> SyntheticScene:
-    """The 2-view pair, the seed image and the scene's truth, from ``seed``."""
+def make_scene(seed: int = 0, size: int = 1024, n_views: int = 2) -> SyntheticScene:
+    """The views, the seed image and the scene's truth, from ``seed``.
+    Images 0 and 1 and the seed image are the same for 2 and 3 views."""
+    if n_views not in (2, 3):
+        raise ValueError(f"make_scene: n_views must be 2 or 3, got {n_views}")
     rng = np.random.default_rng(seed)
     lat = rng.uniform(-0.6, 0.6)
     lon = rng.uniform(-np.pi, np.pi)
@@ -191,6 +197,8 @@ def make_scene(seed: int = 0, size: int = 1024) -> SyntheticScene:
         _camera(target, along, -BASELINE_KM / 2.0, size, 0, offset),
         _camera(target, along, BASELINE_KM / 2.0, size, 1, offset),
     ]
+    if n_views == 3:
+        images.append(_camera(target, along, 0.0, size, 2, offset))
     side = np.cross(up, along)
     seed_target = up * RADIUS_KM + side * SEED_OFFSET_KM
     seed_target = seed_target / np.linalg.norm(seed_target) * RADIUS_KM
@@ -202,3 +210,27 @@ def make_scene(seed: int = 0, size: int = 1024) -> SyntheticScene:
     for im, r in zip(images + [seed_im], renders):
         im.pixels = np.clip(np.round((r - lo) / (hi - lo) * 255.0), 0, 255).astype(np.uint8)
     return SyntheticScene(images=images, seed_image=seed_im, radius_km=RADIUS_KM)
+
+
+def write_scene_dir(scene: SyntheticScene, path: str) -> str:
+    """Write the views as ``image<i>.png`` with a params.csv under ``path``
+    (absolute ECEF positions, as a capture's params.csv holds them) and the
+    seed image as ``path/seed/seed.png``, outside the image set.  Returns
+    the seed image's path."""
+    from ssrlcv_tpu_torch.io.images import write_image
+
+    os.makedirs(os.path.join(path, "seed"), exist_ok=True)
+    rows = []
+    for im in scene.images:
+        name = f"image{im.id}.png"
+        write_image(os.path.join(path, name), im.pixels)
+        pos = np.asarray(im.cam_pos, np.float64) + np.asarray(im.ecef_offset, np.float64)
+        vals = [*pos, *np.asarray(im.cam_rot, np.float64), *np.asarray(im.fov, np.float64),
+                float(im.foc), *np.asarray(im.dpix, np.float64)]
+        rows.append(",".join([name] + [repr(float(v)) for v in vals]
+                             + [str(im.timestamp), str(im.size[0]), str(im.size[1])]))
+    with open(os.path.join(path, "params.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    seed_path = os.path.join(path, "seed", "seed.png")
+    write_image(seed_path, scene.seed_image.pixels)
+    return seed_path

@@ -271,5 +271,43 @@ def test_bundle_adjust_lm_matches_jax():
     assert float(tr.final_error) < float(tr.initial_error)
     assert float(tr.final_error) == pytest.approx(float(jr.final_error), rel=1e-3)
     np.testing.assert_array_equal(tr.cameras.cam_pos.numpy()[0], np.asarray(cams.cam_pos)[0])
-    with pytest.raises(NotImplementedError):
-        tba(TMS.from_numpy(**arrays), _port_cams(cams), mode="newton")
+    with pytest.raises(ValueError):
+        tba(TMS.from_numpy(**arrays), _port_cams(cams), mode="gauss")
+
+
+@pytest.mark.parametrize("mode", ["newton", "reference"])
+def test_bundle_adjust_modes_match_jax(mode):
+    """The other two modes from the same perturbed camera 1.  "newton":
+    initial and final error within relative 1e-3 of JAX's, final below
+    initial, the error history likewise.  "reference": no update at all,
+    initial == final, a flat history, and the cloud equal to
+    two_view_triangulate's on the input cameras."""
+    from ssrlcv_tpu.ba.two_view import bundle_adjust_two_view as jba
+    from ssrlcv_tpu.config import BAParams
+    from ssrlcv_tpu.core.types import MatchSet as JMS
+    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust
+    from ssrlcv_tpu_torch.core.types import MatchSet as TMS
+    from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
+    from ssrlcv_tpu_torch.geometry.triangulation import two_view_triangulate
+
+    cams, arrays = _rig()
+    arrays["mask"][[7, 123, 301]] = False
+    cams = cams.replace(cam_rot=cams.cam_rot.at[1, 1].add(2e-4))
+    params = BAParams(iterations=6)
+    jr = jba(JMS(**{k: jnp.asarray(v) for k, v in arrays.items()}), cams,
+             iterations=params.iterations, initial_alpha=params.initial_alpha,
+             svd_rcond=params.svd_rcond, mode=mode)
+    tms, tc = TMS.from_numpy(**arrays), _port_cams(cams)
+    tr = bundle_adjust(tms, tc, params, mode=mode)
+    assert float(tr.initial_error) == pytest.approx(float(jr.initial_error), rel=1e-3)
+    assert float(tr.final_error) == pytest.approx(float(jr.final_error), rel=1e-3)
+    np.testing.assert_allclose(tr.error_history.numpy(), np.asarray(jr.error_history), rtol=1e-3)
+    np.testing.assert_array_equal(tr.cameras.cam_pos.numpy()[0], np.asarray(cams.cam_pos)[0])
+    if mode == "newton":
+        assert float(tr.final_error) < float(tr.initial_error)
+    else:
+        assert float(tr.final_error) == float(tr.initial_error)
+        assert (tr.error_history == tr.initial_error).all()
+        pc, _ = two_view_triangulate(generate_bundles(tms, tc))
+        assert torch.equal(tr.cloud.points, pc.points) and torch.equal(tr.cloud.mask, pc.mask)
+        assert torch.equal(tr.cameras.cam_rot, tc.cam_rot)
