@@ -26,8 +26,9 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
      against K3;
   3c. bundle adjustment's other modes on phase 3's filtered matches:
      "newton" (final error not above initial) and "reference" (no update);
-  4. the everest fixture pair, only where the JAX benchmark's fixture
-     directory exists;
+  4. the everest fixture pair, only where the environment variable
+     SSRLCV_EVEREST_FIXTURE names the reference's
+     test/checkpoints/Pipeline2View directory;
   5. the command line (ssrlcv_tpu_torch.pipeline.sfm.main, in process) on
      the scene's three views written as a directory with params.csv, with
      checkpoints: stage times, tracks by view count, BA error, the
@@ -71,6 +72,17 @@ K2_MAX_U8_DIFF = 3
 K4_NO_MATCH = (0, 3.0e38)  # K4's (idx, dist) for a query with no admissible target
 MIN_POINTS = 1000          # the reconstruction-collapse bound of bench.py
 MAX_SURFACE_MEDIAN_M = 100.0
+# published peaks of one H100 SXM at 700 W (dense): the bound of a kernel is
+# the larger of its bytes (each input read once, each output written once)
+# over the memory rate and its operations over the peak rate of their type
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_PER_S = 67e12
+H100_INT8_PER_S = 1979e12
+# fp32 operations per window sample: K1 magnitude, exp, atan2, bin and add
+# (~40); K2 ~40 of its own (rotation, rint, magnitude, exp, atan2, fmod)
+# plus ~8 for each of the ~4 cells x 2 bins it feeds
+K1_OPS_PER_SAMPLE = 40
+K2_OPS_PER_SAMPLE = 100
 
 
 def fail(msg: str):
@@ -112,6 +124,43 @@ def phase_build():
           + (f" (nvcc {built:.2f} s)" if built is not None else " (already built)"))
 
 
+def bound(nbytes: float, ops: float, peak: float):
+    """(bound_ms, bound_by): the least time for ``nbytes`` of traffic and
+    ``ops`` operations at ``peak`` operations per second."""
+    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _k1_samples(sig, pw, lam_o, w_max) -> int:
+    """Window samples K1 evaluates: (2 min(win, w_max) + 1)^2 per keypoint."""
+    from ssrlcv_tpu_torch.features.orient_kernel import window_and_denom
+
+    r = torch.clamp(window_and_denom(sig, pw, lam_o)[0], max=w_max)
+    return int(((2 * r + 1) ** 2).sum())
+
+
+def _k2_samples(theta, sig, pw, lam_d, w_max) -> int:
+    """Window samples K2 evaluates: lattice offsets |dx|,|dy| <= min(win,
+    w_max) whose rotation lies within the window, per keypoint."""
+    from ssrlcv_tpu_torch.features.desc_kernel import descriptor_window
+
+    win = descriptor_window(sig, pw, lam_d)
+    offs = torch.arange(-w_max, w_max + 1, device=sig.device, dtype=torch.float32)
+    dy, dx = (g.reshape(-1) for g in torch.meshgrid(offs, offs, indexing="ij"))
+    n = 0
+    for s0 in range(0, sig.shape[0], 1024):
+        wc = win[s0:s0 + 1024, None]
+        ct, st = torch.cos(theta[s0:s0 + 1024, None]), torch.sin(theta[s0:s0 + 1024, None])
+        cx, cy = dx * ct - dy * st, dx * st + dy * ct
+        n += int(((dx.abs() <= wc) & (dy.abs() <= wc) & (cx.abs() <= wc)
+                  & (cy.abs() <= wc)).sum())
+    return n
+
+
 def _same_twice(fn):
     a = fn()
     b = fn()
@@ -132,7 +181,7 @@ def _u8_diff(a, b) -> int:
 def phase_kernels_features(scene, dev):
     """K1, K2 and K5 (with the use_patches route) against their plain
     versions on octave 0 of image 0.  Returns the per-kernel records."""
-    from ssrlcv_tpu.config import SIFTParams
+    from ssrlcv_tpu_torch.config import SIFTParams
     from ssrlcv_tpu_torch.features import scale_space as ss
     from ssrlcv_tpu_torch.features.desc_kernel import (descriptor_histograms,
                                                        descriptor_histograms_plain)
@@ -158,9 +207,9 @@ def phase_kernels_features(scene, dev):
     pw = octave.pixel_width
     lam_o, lam_d = params.orientation_contrib_width, params.descriptor_contrib_width
 
-    k1 = {"err": 0.0, "flip": 0, "n": 0, "ms": 0.0, "plain_ms": 0.0}
-    k2 = {"err": 0, "raw_err": 0.0, "n": 0, "ms": 0.0, "plain_ms": 0.0}
-    k5 = {"n": 0, "bytes": 0, "ms": 0.0, "plain_ms": 0.0, "launches": 0,
+    k1 = {"err": 0.0, "flip": 0, "n": 0, "ms": 0.0, "plain_ms": 0.0, "samples": 0, "io": 0}
+    k2 = {"err": 0, "raw_err": 0.0, "n": 0, "ms": 0.0, "plain_ms": 0.0, "samples": 0, "io": 0}
+    k5 = {"n": 0, "bytes": 0, "ms": 0.0, "plain_ms": 0.0, "launches": 0, "io": 0,
           "route_err": 0.0, "route_flip": 0, "route_n": 0, "route_u8": 0}
     for b in _describe_buckets(params):
         w_o, w_d = _bucket_windows(params, b)
@@ -177,6 +226,8 @@ def phase_kernels_features(scene, dev):
         k1["err"] = max(k1["err"], err)
         k1["flip"] += flip
         k1["n"] += loc.shape[0]
+        k1["samples"] += _k1_samples(sig, pw, lam_o, w_o)
+        k1["io"] += _nbytes(gx, gy, loc, sig, hk)
         k1["ms"] += cuda_ms(lambda: orientation_histograms(gx, gy, loc, sig, pw, w_o, lam_o), 20,
                             "K1")
         k1["plain_ms"] += cuda_ms(
@@ -195,6 +246,8 @@ def phase_kernels_features(scene, dev):
                                             descriptor_epilogue(vp, ones)))
         k2["raw_err"] = max(k2["raw_err"], float((vk - vp).abs().max()) if vk.numel() else 0.0)
         k2["n"] += oloc.shape[0]
+        k2["samples"] += _k2_samples(oth, osig, pw, lam_d, w_d)
+        k2["io"] += _nbytes(gx, gy, oloc, oth, osig, vk)
         k2["ms"] += cuda_ms(
             lambda: descriptor_histograms(gx, gy, oloc, oth, osig, pw, lam_d, w_d), 10, "K2")
         k2["plain_ms"] += cuda_ms(
@@ -211,6 +264,7 @@ def phase_kernels_features(scene, dev):
                 fail(f"K5 differs from its plain version (bucket {b}, w_max {w})")
             k5["n"] += kl.shape[0]
             k5["bytes"] += 2 * 2 * got[0].numel() * 4  # gx and gy, read and written
+            k5["io"] += _nbytes(gx, gy, kl, *got)
             k5["ms"] += cuda_ms(lambda: extract_patches(gx, gy, kl, w), 10, "K5")
             k5["plain_ms"] += cuda_ms(lambda: extract_patches_plain(gx, gy, kl, w), 2,
                                       "K5 plain")
@@ -254,14 +308,20 @@ def phase_kernels_features(scene, dev):
         fail("the use_patches route disagrees with the K1 / K2 route")
     if k5["launches"] == 0:
         fail("the use_patches route did not launch K5")
+    b1 = bound(k1["io"], k1["samples"] * K1_OPS_PER_SAMPLE, H100_FP32_PER_S)
+    b2 = bound(k2["io"], k2["samples"] * K2_OPS_PER_SAMPLE, H100_FP32_PER_S)
+    b5 = bound(k5["io"], 0, H100_FP32_PER_S)
+    print(f"[kernels] bounds: K1 {b1['bound_ms']:.4f} ms ({b1['bound_by']}; {k1['samples']} "
+          f"window samples), K2 {b2['bound_ms']:.4f} ms ({b2['bound_by']}; {k2['samples']} "
+          f"window samples), K5 {b5['bound_ms']:.4f} ms ({b5['bound_by']})")
     return {
         "orientation_histograms": {"max_abs_err": k1["err"], "ms": k1["ms"],
-                                   "plain_ms": k1["plain_ms"]},
+                                   "plain_ms": k1["plain_ms"], **b1, "library_ms": None},
         "descriptor_histograms": {"max_abs_err": float(k2["err"]), "ms": k2["ms"],
-                                  "plain_ms": k2["plain_ms"]},
+                                  "plain_ms": k2["plain_ms"], **b2, "library_ms": None},
         "extract_patches": {"max_abs_err": 0.0, "ms": k5["ms"], "plain_ms": k5["plain_ms"],
                             "phase": "2: use_patches orientation + descriptors",
-                            "launches": k5["launches"]},
+                            "launches": k5["launches"], **b5, "library_ms": None},
     }
 
 
@@ -280,13 +340,44 @@ def _check_k4(name, k4, k3, plain):
     return int((~answered).sum())
 
 
+def _library_best(q_desc, q_mask, t_desc, t_mask):
+    """The library yardstick of K3 / K4, unconstrained: cuBLAS's int8
+    product of the centred live descriptors (torch._int_mm), then the row
+    minimum of |t|^2 - 2 q.t (two calls and their elementwise step).
+    Returns (the call, |q|^2 of the live queries)."""
+    def centred(desc, mask):
+        c = (desc[mask].to(torch.int16) - 128).to(torch.int8)
+        pad = -c.shape[0] % 8  # _int_mm wants multiples of 8: repeat the last row
+        return torch.cat([c, c[-1:].expand(pad, -1)]) if pad else c
+
+    q8, t8 = centred(q_desc, q_mask), centred(t_desc, t_mask)
+    tn = (t8.int() ** 2).sum(1, dtype=torch.int32)
+    qn = (q8.int() ** 2).sum(1, dtype=torch.int32)[:int(q_mask.sum())]
+    return lambda: torch.min(tn[None, :] - 2 * torch._int_mm(q8, t8.t()), dim=1), qn
+
+
+def _gated_pairs(f0_mask, t_valid, p1, p2, t_loc, eps) -> int:
+    """(query, target) pairs the epipolar gate admits among the live
+    queries and valid targets: the pairs whose distance the pass needs."""
+    from ssrlcv_tpu_torch.matching.match_kernel import epipolar_segment_mask
+
+    rows = torch.nonzero(f0_mask).squeeze(1)
+    n = 0
+    for s0 in range(0, rows.shape[0], 1024):
+        r = rows[s0:s0 + 1024]
+        n += int((epipolar_segment_mask(p1[r], p2[r], t_loc, eps) & t_valid[None, :]).sum())
+    return n
+
+
 def phase_kernels_match(scene, dev):
-    """K3 and K4 against their plain versions (and K4 against K3) on the
-    scene's features at the pipeline's capacity.  Returns the records."""
-    from ssrlcv_tpu.config import MatchParams, SIFTParams
+    """K3 (with and without q_valid) and K4 against their plain versions
+    (and K4 against K3) on the scene's features at the pipeline's capacity,
+    with the library yardstick on the seed pass.  Returns the records."""
+    from ssrlcv_tpu_torch.config import MatchParams, SIFTParams
     from ssrlcv_tpu_torch.core import camera_math
     from ssrlcv_tpu_torch.features.sift import generate_features
-    from ssrlcv_tpu_torch.matching.match_kernel import best_target, best_target_plain
+    from ssrlcv_tpu_torch.matching.match_kernel import (best_target, best_target_plain,
+                                                        live_tiles, spatial_order, tile_boxes)
     from ssrlcv_tpu_torch.matching.match_mma import best_target_mma, best_target_mma_plain
     from ssrlcv_tpu_torch.pipeline.stages import cameras_from_refimages
 
@@ -300,29 +391,61 @@ def phase_kernels_match(scene, dev):
     p1, p2 = camera_math.epipolar_segment_endpoints(
         f0.loc, cams.cam_pos[0], cams.cam_rot[0], cams.foc[0], cams.dpix[0], cams.size[0],
         cams.ecef_offset[0], P, mp.delta)
+    p1, p2 = p1.contiguous(), p2.contiguous()
     inf2 = torch.full((f0.capacity, 2), torch.inf, device=dev)
+    live = int(f0.mask.sum())
     cases = {
-        "seed": (f0.descriptors, seed_fs.descriptors, seed_fs.loc, inf2, inf2, 0.0, seed_fs.mask),
-        "constrained": (f0.descriptors, f1.descriptors, f1.loc, p1.contiguous(),
-                        p2.contiguous(), mp.epsilon, f1.mask),
+        "seed": ((f0.descriptors, seed_fs.descriptors, seed_fs.loc, inf2, inf2, 0.0,
+                  seed_fs.mask), live * int(seed_fs.mask.sum())),
+        "constrained": ((f0.descriptors, f1.descriptors, f1.loc, p1, p2, mp.epsilon, f1.mask),
+                        _gated_pairs(f0.mask, f1.mask, p1, p2, f1.loc, mp.epsilon)),
     }
-    k3 = {"ms": 0.0, "plain_ms": 0.0}
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "no_q_valid_ms": 0.0, "io": 0,
+          "ops": 0}
     k4 = {"ms": 0.0, "plain_ms": 0.0, "launches": 0}
-    for name, args in cases.items():
-        same, (ik, dk) = _same_twice(lambda: best_target(*args))
+    for name, (args, pairs) in cases.items():
+        qv = {"q_valid": f0.mask}  # as the main path calls it
+        # without q_valid (every row answered), then with it
+        same, (ia, da) = _same_twice(lambda: best_target(*args))
+        if not same:
+            fail(f"K3 is not deterministic ({name}, no q_valid)")
+        ip, dp = best_target_plain(*args)
+        if not (torch.equal(ia, ip) and torch.equal(da, dp)):
+            fail(f"K3 {name} (no q_valid): idx/dist differ from the plain version in "
+                 f"{int((ia != ip).sum())}/{int((da != dp).sum())} queries")
+        same, (ik, dk) = _same_twice(lambda: best_target(*args, **qv))
         if not same:
             fail(f"K3 is not deterministic ({name})")
-        ip, dp = best_target_plain(*args)
-        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+        ipv, dpv = best_target_plain(*args, **qv)
+        if not (torch.equal(ik, ipv) and torch.equal(dk, dpv)):
             fail(f"K3 {name}: idx/dist differ from the plain version in "
-                 f"{int((ik != ip).sum())}/{int((dk != dp).sum())} queries")
-        t_k = cuda_ms(lambda: best_target(*args), 5, "K3")
-        t_p = cuda_ms(lambda: best_target_plain(*args), 1, "K3 plain")
-        k3["ms"], k3["plain_ms"] = k3["ms"] + t_k, k3["plain_ms"] + t_p
+                 f"{int((ik != ipv).sum())}/{int((dk != dpv).sum())} queries")
+        t_k = cuda_ms(lambda: best_target(*args, **qv), 10, "K3")
+        t_a = cuda_ms(lambda: best_target(*args), 10, "K3 without q_valid")
+        t_p = cuda_ms(lambda: best_target_plain(*args, **qv), 1, "K3 plain")
+        lib, qn = _library_best(args[0], f0.mask, args[1], args[6])
+        if name == "seed":  # the yardstick computes the same function here
+            got = (qn + lib()[0][:qn.shape[0]]).float()
+            if not torch.equal(got, dk[f0.mask]):
+                fail("the library yardstick disagrees with K3 on the seed pass")
+        t_l = cuda_ms(lib, 3, "library")
+        del lib
+        io = _nbytes(*args[:5], args[6], f0.mask, ik, dk)
+        box_args = (args[2], args[3], args[4], args[5], args[6], f0.mask)
+        live_t = live_tiles(*tile_boxes(*box_args, *spatial_order(args[2], args[6], args[3],
+                                                                  args[4], f0.mask)))
+        evaluated = int(live_t.sum()) * 16 * 128
+        b = bound(io, 2 * 128 * pairs, H100_INT8_PER_S)
+        for key, v in (("ms", t_k), ("no_q_valid_ms", t_a), ("plain_ms", t_p),
+                       ("library_ms", t_l), ("io", io), ("ops", 2 * 128 * pairs)):
+            k3[key] += v
         nq, nt = args[0].shape[0], args[1].shape[0]
-        print(f"[kernels] K3 {name}: {nq} x {nt} capacity "
-              f"({int(f0.mask.sum())} x {int(args[6].sum())} live), idx and dist bit-identical; "
-              f"{t_k:.3f} ms vs plain {t_p:.3f} ms")
+        print(f"[kernels] K3 {name}: {nq} x {nt} capacity ({live} x {int(args[6].sum())} live, "
+              f"{pairs} pairs needing a distance, {evaluated} in the tiles evaluated), idx "
+              f"and dist bit-identical with and "
+              f"without q_valid; {t_k:.4f} ms ({t_a:.4f} ms without q_valid) vs plain "
+              f"{t_p:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library "
+              f"(_int_mm + min, live rows, ungated) {t_l:.3f} ms")
 
         best_target_mma.launches = 0
         k4_out = best_target_mma(*args)  # the K4 path: its entry point on these features
@@ -330,16 +453,18 @@ def phase_kernels_match(scene, dev):
         same, again = _same_twice(lambda: best_target_mma(*args))
         if not (same and all(torch.equal(x, y) for x, y in zip(k4_out, again))):
             fail(f"K4 is not deterministic ({name})")
-        unanswered = _check_k4(name, k4_out, (ik, dk), best_target_mma_plain(*args))
+        unanswered = _check_k4(name, k4_out, (ia, da), best_target_mma_plain(*args))
         t4 = cuda_ms(lambda: best_target_mma(*args), 5, "K4")
         t4p = cuda_ms(lambda: best_target_mma_plain(*args), 1, "K4 plain")
         k4["ms"], k4["plain_ms"] = k4["ms"] + t4, k4["plain_ms"] + t4p
         print(f"[kernels] K4 {name}: {nq} x {nt} capacity, idx and dist bit-identical to K3 "
               f"and to its plain version, {unanswered} queries without an admissible target at "
-              f"(0, 3.0e38); {t4:.3f} ms vs K3 {t_k:.3f} ms vs plain {t4p:.3f} ms; "
+              f"(0, 3.0e38); {t4:.3f} ms vs K3 {t_a:.3f} ms (no q_valid) vs plain {t4p:.3f} ms; "
               f"{2 * nq * nt * 128 / t4 / 1e9:.1f} effective int8 TOPS")
-    return {"best_target": {"max_abs_err": 0.0, **k3},
-            "best_target_mma": {"max_abs_err": 0.0, **k4}}
+    b3 = bound(k3.pop("io"), k3.pop("ops"), H100_INT8_PER_S)
+    return {"best_target": {"max_abs_err": 0.0, **k3, **b3},
+            "best_target_mma": {"max_abs_err": 0.0, **k4, **b3,
+                                "library_ms": k3["library_ms"]}}
 
 
 def phase_gather(dev):
@@ -366,14 +491,16 @@ def phase_gather(dev):
         print("[timing] K6 benchmark: host-bound, the window includes host gaps")
     if launches == 0:
         fail("the gather benchmark did not launch K6")
+    b6 = bound(_nbytes(*args[:4], out), 0, H100_FP32_PER_S)
     return {"patch_row_sums": {"max_abs_err": 0.0, "ms": res["h_ms"], "plain_ms": plain_ms,
-                               "phase": "2: bench.gather_patches", "launches": launches}}
+                               "phase": "2: bench.gather_patches", "launches": launches,
+                               **b6, "library_ms": None}}
 
 
 def phase_main_path(scene, dev):
     """Seed SIFT + run_pipeline on the card, counters reset just before."""
-    from ssrlcv_tpu.config import MatchParams, PipelineConfig, SIFTParams
-    from ssrlcv_tpu.io import ply
+    from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig, SIFTParams
+    from ssrlcv_tpu_torch.io import ply
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
     from ssrlcv_tpu_torch.features.sift import generate_features
@@ -450,8 +577,8 @@ def phase_brute(scene, dev):
     run_pipeline with MatchParams(mode="brute")), counters reset just
     before; then K4 on that run's two feature sets, unconstrained, against
     K3.  Returns K4's launches there."""
-    from ssrlcv_tpu.config import MatchParams, PipelineConfig, SIFTParams
-    from ssrlcv_tpu.io import ply
+    from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig, SIFTParams
+    from ssrlcv_tpu_torch.io import ply
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
     from ssrlcv_tpu_torch.features.sift import generate_features
@@ -577,7 +704,7 @@ def _cli_report(tag, rows, seconds, launches):
 
 
 def _ply(out_dir, name):
-    from ssrlcv_tpu.io import ply
+    from ssrlcv_tpu_torch.io import ply
 
     path = os.path.join(out_dir, f"{name}.ply")
     if not os.path.exists(path):
@@ -672,20 +799,19 @@ def phase_cli_pose(scene, counters):
 
 
 def phase_everest(dev):
-    from bench import FIXTURE  # the fixture directory the JAX benchmark reads
-
-    if not os.path.isdir(FIXTURE):
+    fixture = os.environ.get("SSRLCV_EVEREST_FIXTURE", "")
+    if not os.path.isdir(fixture):
         print("[everest] skipped: the everest fixture pair is absent")
         return
     from scipy.spatial import cKDTree
 
-    from ssrlcv_tpu.config import MatchParams, PipelineConfig
-    from ssrlcv_tpu.io import refdata
+    from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig
+    from ssrlcv_tpu_torch.io import refdata
     from ssrlcv_tpu_torch.core.types import FeatureSet
     from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
     from ssrlcv_tpu_torch.pipeline import stages as S
 
-    fx = refdata.load_fixture_dir(FIXTURE, 2)
+    fx = refdata.load_fixture_dir(fixture, 2)
     sf = fx["seed_features"]
     n = len(sf["loc"])
     cap = ((n + 127) // 128) * 128
@@ -749,8 +875,8 @@ def main():
                           launches_by_phase={k: p[name] for k, p in by_phase.items()})
     print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s after start")
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    if any(m.split(".")[0] in ("jax", "ssrlcv_tpu") for m in sys.modules):
+        fail("jax or the JAX package was imported")
     sources = {
         "orientation_histograms": ("csrc/orient.cu", "ssrlcv_tpu/features/orient_kernel.py:57"),
         "descriptor_histograms": ("csrc/desc.cu", "ssrlcv_tpu/features/desc_kernel.py:77"),

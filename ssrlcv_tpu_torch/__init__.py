@@ -18,9 +18,12 @@ counterpart is easy to find:
     ba/          2-view bundle adjustment (Levenberg-Marquardt, torch.func)
     pipeline/    the 2-view reconstruction stages
 
-It imports ``torch`` and never ``jax``.  It reuses the JAX package's jax-free
-modules as they are: ``ssrlcv_tpu.config``, ``ssrlcv_tpu.io.refdata``,
-``ssrlcv_tpu.io.ply`` and ``ssrlcv_tpu.logging``.
+    config.py    the pipeline's parameters; logging.py the CSV logger
+
+It imports ``torch`` and never ``jax``, nor any module of the JAX package:
+its configuration, logger, fixture reader and PLY writer are its own copies.
+Its entry points run on ``cuda:0`` unless the caller names another device
+(``device="cpu"``); without a card they raise.
 
 Precision: float32 convolutions and matrix products are pinned to full
 float32 here, at import, because DoG extrema and the Newton refinement are

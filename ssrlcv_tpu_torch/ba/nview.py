@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 from torch.func import grad, hessian
 
-from ssrlcv_tpu.config import BAParams
+from ssrlcv_tpu_torch.config import BAParams
 from ssrlcv_tpu_torch.core.types import Cameras, MatchSet, PointCloud
 from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
 from ssrlcv_tpu_torch.geometry.triangulation import n_view_triangulate

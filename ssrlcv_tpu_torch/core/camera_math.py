@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ssrlcv_tpu.config import EARTH_MAX_KM_FROM_CENT, EARTH_MIN_KM_FROM_CENT
+from ssrlcv_tpu_torch.config import EARTH_MAX_KM_FROM_CENT, EARTH_MIN_KM_FROM_CENT
 
 
 def rotation_matrix(angles: torch.Tensor) -> torch.Tensor:

@@ -76,3 +76,52 @@ __device__ __forceinline__ bool epi_gate_pass(const EpiGate& g, float tx, float 
   const float y_line = __fadd_rn(__fmul_rn(g.slope, __fsub_rn(tx, g.lx)), g.ly);
   return fabsf(__fsub_rn(y_line, ty)) <= g.eps;
 }
+
+// ---- Fragment and copy helpers of the tensor-core matchers (K3 match.cu,
+// K4 match_mma.cu) ----
+
+// c += a * b on the tensor cores: m16n8k32, row-major A (16 x 32 bytes),
+// column-major B (32 x 8 bytes), u8 x u8 -> s32, exact.  Register i of a
+// holds, for thread lane (g = lane >> 2, tq = lane & 3): a[0] row g, bytes
+// 4tq..4tq+3; a[1] row g+8, same bytes; a[2] row g, bytes 16+4tq..; a[3]
+// row g+8, bytes 16+4tq..; b0 target g, bytes 4tq..; b1 target g, bytes
+// 16+4tq..; accumulator c[0], c[1] row g, targets 2tq, 2tq+1; c[2], c[3]
+// row g+8.
+__device__ __forceinline__ void mma_u8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The lexicographic (d, idx) minimum over the four threads of a quad (the
+// threads that share an accumulator row): the lowest index wins a tie,
+// whatever the order of the reduction.
+__device__ __forceinline__ void quad_argmin(int& d, int& i) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const int od = __shfl_xor_sync(0xffffffffu, d, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (od < d || (od == d && oi < i)) {
+      d = od;
+      i = oi;
+    }
+  }
+}
+
+// 16-byte asynchronous copy global -> shared; src_bytes 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}

@@ -35,8 +35,9 @@
 // gate to its 4 accumulator entries (2 queries x 2 targets) and keeps a
 // running (d, idx) per query, replaced on a strict '<' in increasing target
 // order.  The four threads of a quad share a query row and reduce with a
-// lexicographic (d, idx) minimum, so the lowest index wins ties whatever the
-// order of the reduction.
+// lexicographic (d, idx) minimum (quad_argmin, common.cuh), so the lowest
+// index wins ties whatever the order of the reduction.  The fragment layout
+// is mma_u8's (common.cuh).
 #include "common.cuh"
 
 namespace {
@@ -46,15 +47,6 @@ constexpr int kQ = 16 * kWarps;  // queries per block
 constexpr int kT = 128;          // targets per shared-memory tile
 constexpr int kRowWords = 36;    // 32 descriptor words + 4 words of padding
 constexpr float kNoMatch = 3.0e38f;
-
-__device__ __forceinline__ void mma_u8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 match_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
@@ -139,15 +131,7 @@ match_mma_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     int bd = best_d[r], bi = best_i[r];
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const int od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (od < bd || (od == bd && oi < bi)) {
-        bd = od;
-        bi = oi;
-      }
-    }
+    quad_argmin(bd, bi);
     const int row = row0 + 8 * r;
     if (tq == 0 && row < nq) {
       out_idx[row] = bd == INT_MAX ? 0 : bi;

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ssrlcv_tpu.config import SIFTParams
+from ssrlcv_tpu_torch.config import SIFTParams
 from ssrlcv_tpu_torch.features.desc_kernel import (descriptor_histograms,
                                                    descriptor_histograms_plain)
 from ssrlcv_tpu_torch.features.detector import SSKeyPoints

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ssrlcv_tpu.config import SIFTParams
+from ssrlcv_tpu_torch.config import SIFTParams
 
 
 class SSKeyPoints(NamedTuple):

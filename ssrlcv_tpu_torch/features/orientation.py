@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from ssrlcv_tpu.config import SIFTParams
+from ssrlcv_tpu_torch.config import SIFTParams
 from ssrlcv_tpu_torch.features.detector import SSKeyPoints
 from ssrlcv_tpu_torch.features.orient_kernel import (orientation_histograms,
                                                      orientation_histograms_plain)

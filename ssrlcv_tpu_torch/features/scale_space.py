@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ssrlcv_tpu.config import SIFTParams
+from ssrlcv_tpu_torch.config import SIFTParams
 from ssrlcv_tpu_torch.ops import image_ops as ops
 
 

@@ -22,12 +22,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ssrlcv_tpu.config import SIFTParams
+from ssrlcv_tpu_torch.config import SIFTParams
+from ssrlcv_tpu_torch.core.device import resolve_device
 from ssrlcv_tpu_torch.core.types import FeatureSet
 from ssrlcv_tpu_torch.features import scale_space as ss
 from ssrlcv_tpu_torch.features.descriptor import fill_descriptors
 from ssrlcv_tpu_torch.features.detector import check_descriptor_border, find_keypoints_octave
 from ssrlcv_tpu_torch.features.orientation import compute_orientations
+from ssrlcv_tpu_torch.logging import logger
 from ssrlcv_tpu_torch.ops import image_ops as ops
 
 
@@ -70,12 +72,12 @@ def _describe_bucket(kps, gx, gy, params: SIFTParams, b: int, pixel_width: float
 def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int = -1,
                       device=None) -> FeatureSet:
     """SIFT features of one grayscale (or RGB) uint8 image, on ``device``
-    (the device of ``pixels`` when it is a tensor and ``device`` is None,
-    else the CPU).  Returns a FeatureSet of capacity ``max_keypoints``
+    (when None: the device of ``pixels`` if it is a tensor, else
+    ``cuda:0``, which raises without a card).  Returns a FeatureSet of capacity ``max_keypoints``
     ordered (octave, blur bucket, detection order)."""
     params = params or SIFTParams()
     if device is None:
-        device = pixels.device if isinstance(pixels, torch.Tensor) else torch.device("cpu")
+        device = pixels.device if isinstance(pixels, torch.Tensor) else resolve_device()
     px = torch.as_tensor(np.asarray(pixels) if not isinstance(pixels, torch.Tensor) else pixels,
                          device=device)
     if px.ndim == 3:
@@ -102,8 +104,6 @@ def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int
     cap = params.max_keypoints
     n = loc.shape[0]
     if n > cap:
-        from ssrlcv_tpu.logging import logger
-
         logger.warn(f"image {image_id}: {n} valid features exceed max_keypoints={cap} — "
                     "tail dropped by global aggregation; raise SIFTParams.max_keypoints")
         n = cap
@@ -118,7 +118,8 @@ def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int
 
 def generate_features_many(pixel_list, params: Optional[SIFTParams] = None,
                            image_ids: Optional[list] = None, device=None) -> list:
-    """SIFT features of several images, one after another on ``device``."""
+    """SIFT features of several images, one after another on ``device``
+    (as ``generate_features``)."""
     ids = list(image_ids) if image_ids is not None else list(range(len(pixel_list)))
     if len(ids) != len(pixel_list):
         raise ValueError(f"generate_features_many: {len(pixel_list)} images but "

@@ -21,8 +21,9 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
-from ssrlcv_tpu.io.refdata import RefImage
-from ssrlcv_tpu.logging import logger
+from ssrlcv_tpu_torch.io.refdata import RefImage
+from ssrlcv_tpu_torch.logging import logger
+from ssrlcv_tpu_torch.core.device import resolve_device
 from ssrlcv_tpu_torch.core.types import Cameras
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".tif", ".tiff")
@@ -269,10 +270,11 @@ def load_directory(dirpath: str, no_params: bool = False) -> list:
 
 
 def cameras_from_refimages(images: Iterable[RefImage], device=None) -> Cameras:
-    """Stack host RefImages into batched Cameras on ``device``."""
+    """Stack host RefImages into batched Cameras on ``device`` (None:
+    ``cuda:0``, which raises without a card)."""
     ims = list(images)
     return Cameras.from_numpy(
-        device=device,
+        device=resolve_device(device),
         cam_pos=np.stack([im.cam_pos for im in ims]).astype(np.float32),
         cam_rot=np.stack([im.cam_rot for im in ims]).astype(np.float32),
         fov=np.stack([im.fov for im in ims]).astype(np.float32),

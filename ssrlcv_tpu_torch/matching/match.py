@@ -5,8 +5,9 @@ utilities.
 Counterpart of the 2-view path of ``ssrlcv_tpu/matching/match.py``.  The
 seed pass, the double-constrained match and (for 128-wide SIFT descriptors
 under squared L2 on a CUDA device) the brute-force match go through kernel
-K3 (``match_kernel.best_target``); the rest uses the chunked plain matcher
-(``distance.best_target_chunked``).  Thresholds and invalidation follow the
+K3 (``match_kernel.best_target``), which answers only the query slots in
+the query's mask (the others get (0, +inf) and are invalid anyway); the
+rest uses the chunked plain matcher (``distance.best_target_chunked``).  Thresholds and invalidation follow the
 reference kernels:
 
   * invalid if best_dist >= absolute_threshold;
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ssrlcv_tpu.config import MatchParams
+from ssrlcv_tpu_torch.config import MatchParams
 from ssrlcv_tpu_torch.core import camera_math
 from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet
 from ssrlcv_tpu_torch.matching.distance import best_target_chunked
@@ -57,12 +58,13 @@ def _use_kernel(query, metric: str, backend: str) -> bool:
 def seed_distances(features: FeatureSet, seed: FeatureSet, chunk: int = 1024,
                    metric: str = "l2sq") -> torch.Tensor:
     """Nearest seed-descriptor distance per feature: the unconstrained K3
-    pass for squared L2 on 128-wide descriptors, the chunked plain pass
+    pass for squared L2 on 128-wide descriptors (+inf for the slots outside
+    the features' mask, which K3 does not answer), the chunked plain pass
     otherwise."""
     if metric == "l2sq" and features.descriptors.shape[1] == 128:
         inf2 = _unconstrained(features.capacity, features.loc.device)
         _, dist = best_target(features.descriptors, seed.descriptors, seed.loc.contiguous(),
-                              inf2, inf2, 0.0, seed.mask)
+                              inf2, inf2, 0.0, seed.mask, q_valid=features.mask)
         return dist
     return best_target_chunked(features.descriptors, seed.descriptors, seed.mask, chunk=chunk,
                                metric=metric)[1]
@@ -93,7 +95,8 @@ def match_double_constrained(query: FeatureSet, target: FeatureSet, cameras: Cam
         query.loc, cameras.cam_pos[qi], cameras.cam_rot[qi], cameras.foc[qi],
         cameras.dpix[qi], cameras.size[qi], cameras.ecef_offset[qi], P, params.delta)
     idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
-                            p1.contiguous(), p2.contiguous(), params.epsilon, target.mask)
+                            p1.contiguous(), p2.contiguous(), params.epsilon, target.mask,
+                            q_valid=query.mask)
     return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
 
 
@@ -109,7 +112,7 @@ def match_brute_force(query: FeatureSet, target: FeatureSet, params: MatchParams
     if _use_kernel(query, metric, backend):
         inf2 = _unconstrained(query.capacity, query.loc.device)
         idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
-                                inf2, inf2, 0.0, target.mask)
+                                inf2, inf2, 0.0, target.mask, q_valid=query.mask)
     else:
         idx, dist = best_target_chunked(query.descriptors, target.descriptors, target.mask,
                                         chunk=chunk, metric=metric)

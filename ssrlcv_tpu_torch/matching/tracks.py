@@ -22,8 +22,8 @@ from typing import Optional
 
 import numpy as np
 
-from ssrlcv_tpu.config import MatchParams
-from ssrlcv_tpu.logging import logger
+from ssrlcv_tpu_torch.config import MatchParams
+from ssrlcv_tpu_torch.logging import logger
 from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet
 
 # pair passes queued ahead of the oldest fetch: deep enough to keep the card

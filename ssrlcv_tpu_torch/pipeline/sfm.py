@@ -23,8 +23,9 @@ import sys
 
 import torch
 
-from ssrlcv_tpu.config import MatchParams, PipelineConfig
-from ssrlcv_tpu.logging import logger
+from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig
+from ssrlcv_tpu_torch.core.device import resolve_device
+from ssrlcv_tpu_torch.logging import logger
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -48,19 +49,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _device(spec: str) -> torch.device:
-    dev = torch.device(spec)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {spec}: no CUDA device is available "
-                           "(pass --device cpu to run on the CPU)")
-    return dev
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.mesh:
         raise NotImplementedError("--mesh: multi-device stages are not ported (ROADMAP.md 1.16)")
-    device = _device(args.device)
+    device = resolve_device(args.device)
     logger.close()  # a log opened before this run goes on in its own file
     logger.log_dir = args.output_dir
     logger.path = f"{args.output_dir}/ssrlcv.log"

@@ -7,7 +7,8 @@ Counterpart of ``ssrlcv_tpu/pipeline/stages.py``, with its numbering:
 
 Each stage is a function over a ``PipelineState``; with two images the
 2-view branch of each stage runs, with more the N-view branch.
-``run_pipeline`` runs them in order on the state's device, writes the
+``run_pipeline`` runs them in order on the state's device (``cuda:0``
+unless the state or the call names another), writes the
 initial, filtered and bundle-adjusted clouds as PLY files under
 ``config.output_dir`` and, with ``config.checkpoint_dir``, checkpoints every
 stage and resumes at the first stage without a ``done`` marker.  Pinhole
@@ -24,9 +25,10 @@ from typing import Optional
 
 import torch
 
-from ssrlcv_tpu.config import MatchParams, PipelineConfig
-from ssrlcv_tpu.io import ply
-from ssrlcv_tpu.logging import logger
+from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig
+from ssrlcv_tpu_torch.io import ply
+from ssrlcv_tpu_torch.logging import logger
+from ssrlcv_tpu_torch.core.device import resolve_device
 from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet, PointCloud
 from ssrlcv_tpu_torch.io import checkpoint as ckpt
 from ssrlcv_tpu_torch.io.images import cameras_from_refimages  # noqa: F401  (re-exported)
@@ -44,7 +46,7 @@ NUM_STAGES = 6
 class PipelineState:
     config: PipelineConfig
     images: list                                   # list[RefImage]
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None          # None: cuda:0
     cameras: Optional[Cameras] = None
     features: Optional[list] = None                # list[FeatureSet]
     seed_features: Optional[FeatureSet] = None
@@ -53,6 +55,9 @@ class PipelineState:
     cloud: Optional[PointCloud] = None
     ba_error: Optional[tuple] = None               # (initial, final)
     stage_seconds: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
 
 def _two_view(state: PipelineState) -> bool:
@@ -213,7 +218,7 @@ def run_pipeline(state: PipelineState, device=None) -> PipelineState:
     read after one synchronisation at the end, so the stages run without
     added synchronisation."""
     if device is not None:
-        state.device = torch.device(device)
+        state.device = resolve_device(device)
     root = state.config.checkpoint_dir
     start = first_stage(state)
     if start > 0:
@@ -269,7 +274,7 @@ def _restore(state: PipelineState, root: str, start: int):
     """Rebuild the state from the last finished stage's checkpoint, on the
     state's device."""
     last, dev = start - 1, state.device
-    like = {"cameras": cameras_from_refimages(state.images)}
+    like = {"cameras": cameras_from_refimages(state.images, "cpu")}
     if last <= STAGE_POSE:
         cap = state.config.sift.max_keypoints
         for j, im in enumerate(state.images):

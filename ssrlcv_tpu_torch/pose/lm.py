@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
-from ssrlcv_tpu.config import PoseParams
+from ssrlcv_tpu_torch.config import PoseParams
 from ssrlcv_tpu_torch.core import camera_math
 from ssrlcv_tpu_torch.core.types import Cameras, MatchSet
 from ssrlcv_tpu_torch.geometry.triangulation import two_view_midpoints

@@ -2,7 +2,7 @@
 smoke-run fixture, not a pipeline feature.
 
 The scene is a sphere of radius 6371 km (inside the Earth-radius band the
-double-constrained matcher searches, ``ssrlcv_tpu.config``) carrying a
+double-constrained matcher searches, ``config.py``) carrying a
 multi-octave value-noise albedo defined on ground coordinates, so every view
 sees the same surface.  Two pinhole cameras about 400 km above the ground and
 about 70 km apart both aim at one ground point; with three views a third
@@ -26,7 +26,7 @@ import os
 
 import numpy as np
 
-from ssrlcv_tpu.io.refdata import RefImage
+from ssrlcv_tpu_torch.io.refdata import RefImage
 
 RADIUS_KM = 6371.0
 ALTITUDE_KM = 400.0

@@ -111,7 +111,7 @@ def test_load_directory_matches_jax(tmp_path):
                 np.testing.assert_array_equal(va, vb, err_msg=k)
             else:
                 assert va == vb, k
-    jc, tc = J.cameras_from_refimages(ji), T.cameras_from_refimages(ti)
+    jc, tc = J.cameras_from_refimages(ji), T.cameras_from_refimages(ti, "cpu")
     for f in dataclasses.fields(tc):
         np.testing.assert_array_equal(getattr(tc, f.name).numpy(),
                                       np.asarray(getattr(jc, f.name)).astype(
@@ -181,6 +181,7 @@ def _argv(d, seed, out, ckpt, pose):
 def cli_runs(scene3, tmp_path_factory):
     """Both command lines on the 3-view directory and on the 2-view
     directory (images 0 and 1 of the same scene) with --pose."""
+    from ssrlcv_tpu.logging import logger as jax_logger
     from ssrlcv_tpu.pipeline import sfm as J
     from ssrlcv_tpu_torch.pipeline import sfm as T
     from ssrlcv_tpu_torch.synthetic import write_scene_dir
@@ -197,6 +198,10 @@ def cli_runs(scene3, tmp_path_factory):
             seed = write_scene_dir(dataclasses.replace(scene3, images=images), d)
             for pkg, main, extra in (("torch", T.main, ["--device", "cpu"]), ("jax", J.main, [])):
                 out, ck = str(root / f"{pkg}_out"), str(root / f"{pkg}_ckpt")
+                # the JAX command line goes on writing to a log that JAX
+                # code opened earlier in this process (the port's closes
+                # it first): close it, so that its log lands in ``out``
+                jax_logger.close()
                 assert main(_argv(d, seed, out, ck, pose) + extra) == 0
             runs[name] = (root, d, seed, pose)
     finally:
@@ -287,4 +292,4 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     images[1].is_pushbroom = True
     with pytest.raises(NotImplementedError, match="1.14"):
         S.run_pipeline(S.PipelineState(config=PipelineConfig(output_dir=str(tmp_path / "pb")),
-                                       images=images), "cpu")
+                                       images=images, device="cpu"))

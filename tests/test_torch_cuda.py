@@ -90,6 +90,49 @@ def _mma_case(seed=11):
     return q, t, t_loc, p1, p2, t_valid, unc
 
 
+def _skip_case(seed=13, nq=400, nt=1000):
+    """K3's tile-skip cases: queries and targets in y-major order (as SIFT
+    emits them; K3 orders them itself), and per 16-row group of queries one
+    kind of segment: short,
+    steep (|slope| ~ 50), near-horizontal, vertical and zero-length
+    segments, unconstrained rows, a query whose band meets no target, ties,
+    invalid targets and a q_valid mask with a padding tail.  Returns
+    (q, t, t_loc, p1, p2, t_valid, q_valid)."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 256, (nt, 128)).astype(np.uint8)
+    q = rng.integers(0, 256, (nq, 128)).astype(np.uint8)
+    t_loc = rng.uniform(0, 512, (nt, 2)).astype(np.float32)
+    t_loc = t_loc[np.argsort(t_loc[:, 1], kind="stable")]
+    q[:60] = t[rng.integers(0, nt, 60)]
+    t[501] = t[500]                               # a tie: lowest index must win
+    q[70] = t[500]
+    t_valid = np.ones(nt, bool)
+    t_valid[-40:] = False
+    t_valid[rng.integers(0, nt - 40, 30)] = False
+    t_valid[[500, 501]] = True
+    c = rng.uniform(0, 512, (nq, 2)).astype(np.float32)
+    c = c[np.argsort(c[:, 1], kind="stable")]
+    d = rng.normal(0, 1, (nq, 2)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    length = rng.uniform(5, 80, (nq, 1)).astype(np.float32)
+    kind = (np.arange(nq) // 16) % 5
+    d[kind == 1] = np.array([1.0, 50.0], np.float32) / np.float32(np.hypot(1, 50))  # steep
+    d[kind == 2] = (1.0, 0.01)                    # near horizontal
+    d[kind == 3] = (0.0, 1.0)                     # vertical
+    length[kind == 4] = 0.0                       # a point: vertical, zero length
+    p1 = (c - d * length / 2).astype(np.float32)
+    p2 = (c + d * length / 2).astype(np.float32)
+    p1[70], p2[70] = t_loc[500] - (10, 0), t_loc[500] + (10, 0)
+    p1[71], p2[71] = (100.0, 5000.0), (200.0, 5100.0)  # no target in its band
+    unc = (np.arange(nq) // 16) % 7 == 3
+    p1[unc] = np.inf
+    p2[unc] = np.inf
+    q_valid = rng.uniform(size=nq) > 0.2
+    q_valid[-50:] = False                         # capacity padding
+    q_valid[[70, 71]] = True
+    return q, t, t_loc, p1, p2, t_valid, q_valid
+
+
 def _patch_case(seed=0, h=320, w=512, k=37):
     """tests/test_patches.py's extraction setup: gradient planes and k
     keypoints, some near the edges, a few on exact .5 coordinates (rounded
@@ -169,11 +212,103 @@ def test_cuda_best_target_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_q_valid", [False, True])
+def test_cuda_best_target_tile_skip_matches_plain(cuda_device, with_q_valid):
+    """K3 with its y-band tile skip on y-sorted targets and steep, flat,
+    vertical and unconstrained segments: idx and dist bit-identical to the
+    plain version, with and without q_valid ((0, +inf) on its false rows),
+    the same on a second run."""
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target, best_target_plain
+
+    q, t, t_loc, p1, p2, t_valid, q_valid = _skip_case()
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, t, t_loc, p1, p2)]
+    tv = torch.from_numpy(t_valid).to(cuda_device)
+    kw = {"q_valid": torch.from_numpy(q_valid).to(cuda_device)} if with_q_valid else {}
+    ik, dk = best_target(*args, 25.0, tv, **kw)
+    ik2, dk2 = best_target(*args, 25.0, tv, **kw)
+    ip, dp = best_target_plain(*args, 25.0, tv, **kw)
+    assert torch.equal(ik, ik2) and torch.equal(dk, dk2)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert int(ik[70]) == 500 and float(dk[71]) == float("inf")
+    if with_q_valid:
+        off = ~kw["q_valid"]
+        assert (ik[off] == 0).all() and torch.isinf(dk[off]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_best_target_layout_matches_restatement(cuda_device):
+    """K3's device-side preparation gives the plain restatement's sort
+    keys' orders (spatial_order), per-target records (target_meta), boxes
+    (tile_boxes) and squared query norms, exactly."""
+    from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.matching.match_kernel import (QW, TT, spatial_order, target_meta,
+                                                        tile_boxes)
+
+    q, t, t_loc, p1, p2, t_valid, q_valid = (torch.from_numpy(a).to(cuda_device)
+                                             for a in _skip_case())
+    nq, nt = q.shape[0], t.shape[0]
+    lib, stream = _cuda.library(), _cuda.stream_ptr(cuda_device)
+    f64 = {"dtype": torch.float64, "device": cuda_device}
+    ext, tkey, qkey = torch.empty(4, **f64), torch.empty(nt, **f64), torch.empty(nq, **f64)
+    assert lib.ssrlcv_match_keys(t_loc.data_ptr(), t_valid.data_ptr(), nt, p1.data_ptr(),
+                                 p2.data_ptr(), q_valid.data_ptr(), nq, ext.data_ptr(),
+                                 tkey.data_ptr(), qkey.data_ptr(), stream) == 0
+    qperm, tperm = torch.argsort(qkey, stable=True), torch.argsort(tkey, stable=True)
+    want_q, want_t = spatial_order(t_loc, t_valid, p1, p2, q_valid)
+    assert torch.equal(qperm, want_q) and torch.equal(tperm, want_t)
+    ntiles = -(-nt // TT)
+    f32 = {"dtype": torch.float32, "device": cuda_device}
+    qn = torch.empty(nq, dtype=torch.int32, device=cuda_device)
+    meta, qbox, tbox = (torch.empty(ntiles * TT, 4, **f32), torch.empty(-(-nq // QW), 4, **f32),
+                        torch.empty(ntiles, 4, **f32))
+    idx = torch.empty(nq, dtype=torch.int32, device=cuda_device)
+    dist, scratch = torch.empty(nq, **f32), torch.empty(nq, dtype=torch.int64, device=cuda_device)
+    assert lib.ssrlcv_match_best(
+        q.data_ptr(), t.data_ptr(), t_loc.data_ptr(), t_valid.data_ptr(), p1.data_ptr(),
+        p2.data_ptr(), q_valid.data_ptr(), qperm.data_ptr(), tperm.data_ptr(), 25.0, nq, nt,
+        qn.data_ptr(), meta.data_ptr(), qbox.data_ptr(), tbox.data_ptr(), scratch.data_ptr(),
+        idx.data_ptr(), dist.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    want_meta = target_meta(t, t_loc, t_valid, tperm)
+    assert torch.equal(meta.view(torch.int32), want_meta.view(torch.int32))
+    want_qbox, want_tbox = tile_boxes(t_loc, p1, p2, 25.0, t_valid, q_valid, qperm, tperm)
+    assert torch.equal(qbox, want_qbox) and torch.equal(tbox, want_tbox)
+    assert torch.equal(qn, (q.int() ** 2).sum(1, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_descriptor_edge_angles_matches_plain(cuda_device):
+    """K2 on keypoints with theta at and near multiples of 45 degrees and
+    the widest main-path window (29): uint8 descriptors within 3 of the
+    plain version's (the chip gate), raw histograms to float rounding."""
+    from ssrlcv_tpu_torch.features.desc_kernel import (descriptor_histograms,
+                                                       descriptor_histograms_plain)
+    from ssrlcv_tpu_torch.features.descriptor import descriptor_epilogue
+
+    rng = np.random.default_rng(17)
+    h = w = 256
+    gx, gy = (torch.from_numpy(rng.standard_normal((h, w)).astype(np.float32)).to(cuda_device)
+              for _ in range(2))
+    k = 64
+    theta = (np.arange(k) % 8) * np.pi / 4 + rng.choice([0.0, 1e-6, -1e-6], k)
+    theta = torch.from_numpy(np.mod(theta, 2 * np.pi).astype(np.float32)).to(cuda_device)
+    loc = torch.from_numpy(rng.uniform(40, 216, (k, 2)).astype(np.float32)).to(cuda_device)
+    sigma = torch.from_numpy(rng.uniform(1.0, 4.8, k).astype(np.float32)).to(cuda_device)
+    vk = descriptor_histograms(gx, gy, loc, theta, sigma, 1.0, 6.0, 29)
+    assert torch.equal(vk, descriptor_histograms(gx, gy, loc, theta, sigma, 1.0, 6.0, 29))
+    vp = descriptor_histograms_plain(gx, gy, loc, theta, sigma, 1.0, 6.0, 29)
+    torch.testing.assert_close(vk, vp, rtol=1e-4, atol=1e-4)
+    ones = torch.ones(k, dtype=torch.bool, device=cuda_device)
+    diff = descriptor_epilogue(vk, ones).int() - descriptor_epilogue(vp, ones).int()
+    assert int(diff.abs().max()) <= 3
+
+
+@pytest.mark.cuda
 def test_cuda_slice_matches_cpu(cuda_device, tmp_path):
     """The 2-view slice on a 256x256 synthetic pair, on the card and on the
     CPU: feature counts within 0.5 %, points after filtering within 1 %, and
     every kernel of the path launched."""
-    from ssrlcv_tpu.config import MatchParams, PipelineConfig, SIFTParams
+    from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig, SIFTParams
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
     from ssrlcv_tpu_torch.features.sift import generate_features

@@ -77,6 +77,70 @@ def test_descriptor_plain_matches_jax_gather():
     assert (diff == 0).mean() > 0.99
 
 
+def _k2_bins(ang):
+    """K2's bin selection restated: the bins among floor(ang * 4/pi) - 1 ..
+    + 2 (inside 0..7) that pass |ang - b*pi/4| < pi/4, as an (S, 8) mask."""
+    from ssrlcv_tpu_torch.features.desc_kernel import INV_RAD45, RAD45
+
+    b0 = torch.floor(ang * INV_RAD45).to(torch.int64)
+    got = torch.zeros((ang.shape[0], 8), dtype=torch.bool)
+    for i in (-1, 0, 1, 2):
+        b = b0 + i
+        inside = (b >= 0) & (b <= 7)
+        bc = torch.clamp(b, 0, 7)
+        ok = inside & (torch.abs(ang - bc.to(torch.float32) * RAD45) < RAD45)
+        got[torch.arange(ang.shape[0])[ok], bc[ok]] = True
+    return got
+
+
+def test_descriptor_candidates_cover_the_plain_triples():
+    """K2 adds a sample only to the (cell, bin) pairs that its candidate
+    selection yields: the cells passing the exact cell test against the 16
+    rotated centres, the bins passing the exact bin test among the 4 around
+    floor(angle * 4/pi).  On keypoints with theta at and next to multiples
+    of 45 degrees and angles at and next to bin edges (negative, and next to
+    2 pi, as the unwrapped reference angle can be), that set equals the
+    (sample, cell, bin) triples descriptor_histograms_plain weights non-zero
+    or tests true, and has at most 2 bins and 5 cells of non-zero weight
+    (the image-frame cell box meets 5 rotated centres near 45 degrees)."""
+    from ssrlcv_tpu_torch.features.desc_kernel import _CELL_X, _CELL_Y, RAD45
+
+    rng = np.random.default_rng(3)
+    # bin selection on every angle class the reference angle can take
+    edges = np.arange(-1, 9) * np.pi / 4
+    ang = np.concatenate([edges, np.nextafter(edges, 10), np.nextafter(edges, -10),
+                          rng.uniform(-np.pi / 4, 2 * np.pi, 4000)]).astype(np.float32)
+    ang = torch.from_numpy(ang[(ang > -2 * np.pi) & (ang < 2 * np.pi)])
+    kk = torch.arange(8, dtype=torch.float32) * RAD45
+    plain = torch.abs(ang[:, None] - kk[None, :]) < RAD45  # the plain version's bin test
+    got = _k2_bins(ang)
+    assert torch.equal(got, plain) and int(got.sum(1).max()) <= 2
+
+    # cells: every in-window lattice sample of keypoints with edge angles
+    k = 48
+    theta = torch.from_numpy(np.mod((np.arange(k) % 8) * np.pi / 4
+                                    + rng.choice([0.0, 1e-6, -1e-6, 1e-3], k),
+                                    2 * np.pi).astype(np.float32))
+    win = torch.from_numpy(rng.integers(2, 30, k).astype(np.float32))
+    for kp in range(k):
+        w, ct, st = win[kp], torch.cos(theta[kp]), torch.sin(theta[kp])
+        offs = torch.arange(-int(w), int(w) + 1, dtype=torch.float32)
+        dy, dx = (g.reshape(-1) for g in torch.meshgrid(offs, offs, indexing="ij"))
+        cx, cy = dx * ct - dy * st, dx * st + dy * ct
+        inw = (cx.abs() <= w) & (cy.abs() <= w)
+        cx, cy = cx[inw], cy[inw]
+        hx0 = torch.tensor(_CELL_X) * w
+        hy0 = torch.tensor(_CELL_Y) * w
+        hx, hy = hx0 * ct - hy0 * st, hx0 * st + hy0 * ct
+        binw = w / 2.0
+        ddx = torch.abs(hx[None, :] - cx[:, None])
+        ddy = torch.abs(hy[None, :] - cy[:, None])
+        in_cell = (ddx <= binw) & (ddy <= binw)
+        weight = torch.where(in_cell, (1.0 - ddx / binw) * (1.0 - ddy / binw), 0.0)
+        assert int((weight > 0).sum(1).max()) <= 5
+        assert int(in_cell.sum(1).max()) <= 9
+
+
 def test_best_target_plain_matches_jax_chunked():
     """K3's plain version vs best_target_chunked + _epipolar_segment_mask
     (constrained rows) and best_target_chunked alone (unconstrained rows):

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_cuda import _mma_case
+from test_torch_cuda import _mma_case, _skip_case
 
 torch.set_num_threads(2)
 
@@ -77,6 +77,131 @@ def test_best_target_mma_plain_matches_jax_pallas_interpret():
     assert not answered[6] and idx[200] == 300 and dist[200] == 0.0
 
 
+def _jax_k3(q, t, t_loc, p1, p2, eps, t_valid, qt=16, tt=128):
+    """_match_prep_i8 then _match_kernel_i8 (with its y-band tile skip)
+    through pl.pallas_call in interpret mode, with the call spec of
+    pallas_match._match_call_i8 restated here, at the port's tile sizes
+    (16 query rows, 128 targets).  Returns (idx, dist, qiv, tiv)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from ssrlcv_tpu.matching.pallas_match import _match_kernel_i8, _match_prep_i8
+
+    args = _match_prep_i8(q, t, t_loc, p1, p2, eps, t_valid, qt=qt, tt=tt)
+    nq_pad, nt_pad = args[3].shape[0], args[5].shape[0]
+    smem = partial(pl.BlockSpec, memory_space=pltpu.SMEM)
+    row_spec = partial(pl.BlockSpec, index_map=lambda i, j: (0, j))
+    idx, dist = pl.pallas_call(
+        partial(_match_kernel_i8, tt),
+        grid=(nq_pad // qt, nt_pad // tt),
+        in_specs=[smem(), smem(), smem(),
+                  pl.BlockSpec((qt, 128), lambda i, j: (i, 0)),
+                  pl.BlockSpec((qt, 1), lambda i, j: (i, 0)),
+                  pl.BlockSpec((tt, 128), lambda i, j: (j, 0)),
+                  row_spec((1, tt)), row_spec((1, tt)), row_spec((2, tt)),
+                  pl.BlockSpec((qt, 2), lambda i, j: (i, 0)),
+                  pl.BlockSpec((qt, 2), lambda i, j: (i, 0))],
+        out_specs=[pl.BlockSpec((qt, 1), lambda i, j: (i, 0))] * 2,
+        out_shape=[jax.ShapeDtypeStruct((nq_pad, 1), jnp.int32),
+                   jax.ShapeDtypeStruct((nq_pad, 1), jnp.float32)],
+        scratch_shapes=[pltpu.VMEM((qt,), jnp.float32), pltpu.VMEM((qt,), jnp.int32)],
+        interpret=True,
+    )(*args)
+    nq = q.shape[0]
+    return (np.asarray(idx)[:nq, 0], np.asarray(dist)[:nq, 0], np.asarray(args[1]),
+            np.asarray(args[2]))
+
+
+def test_tile_intervals_match_jax_prep():
+    """The y-band intervals K3 skips on, per 16 query rows and per 128
+    targets in the rows' own order, equal _match_prep_i8's qiv / tiv at
+    those tile sizes, with steep, vertical and unconstrained segments and
+    invalid targets; q_valid false rows contribute the neutral interval, as
+    padding does."""
+    from ssrlcv_tpu.matching.pallas_match import _match_prep_i8
+    from ssrlcv_tpu_torch.matching.match_kernel import (QW, TT, _per_tile, _row_bands,
+                                                        _target_ranges)
+
+    q, t, t_loc, p1, p2, t_valid, q_valid = _skip_case()
+    args = _match_prep_i8(*(jnp.asarray(a) for a in (q, t, t_loc, p1, p2)), 25.0,
+                          jnp.asarray(t_valid), qt=QW, tt=TT)
+    tl, a, b, tv = (torch.from_numpy(x) for x in (t_loc, p1, p2, t_valid))
+    qiv = _per_tile(*_row_bands(a, b, 25.0)[:2], QW)
+    tiv = _per_tile(*_target_ranges(tl, tv)[2:], TT)
+    np.testing.assert_array_equal(qiv.numpy(), np.asarray(args[1]).T)
+    np.testing.assert_array_equal(tiv.numpy(), np.asarray(args[2]).T)
+    assert np.isinf(qiv.numpy()[3]).all()                 # rows 48..63 are unconstrained
+    qv = _per_tile(*_row_bands(a, b, 25.0, torch.zeros(len(q), dtype=torch.bool))[:2], QW)
+    assert (qv[:, 0] == np.inf).all() and (qv[:, 1] == -np.inf).all()
+
+
+@pytest.mark.parametrize("with_q_valid", [False, True])
+def test_best_target_tiled_matches_plain_and_jax(with_q_valid):
+    """The restatement of K3's tile-skip decisions (best_target_tiled) on
+    y-sorted targets with steep, flat, vertical, zero-length and
+    unconstrained segments: idx and dist identical to best_target_plain,
+    with and without q_valid ((0, +inf) on its false rows), and to the
+    Pallas _match_kernel_i8 (its own skip) on every answered row; the skip
+    drops some tiles and keeps others."""
+    from ssrlcv_tpu_torch.matching.match_kernel import (best_target, best_target_plain,
+                                                        best_target_tiled, live_tiles,
+                                                        spatial_order, tile_boxes)
+
+    eps = 25.0
+    q, t, t_loc, p1, p2, t_valid, q_valid = _skip_case()
+    targs = [torch.from_numpy(a) for a in (q, t, t_loc, p1, p2)]
+    tv = torch.from_numpy(t_valid)
+    kw = {"q_valid": torch.from_numpy(q_valid)} if with_q_valid else {}
+    it, dt = best_target_tiled(*targs, eps, tv, **kw)
+    ip, dp = best_target_plain(*targs, eps, tv, **kw)
+    np.testing.assert_array_equal(it.numpy(), ip.numpy())
+    np.testing.assert_array_equal(dt.numpy(), dp.numpy())
+    ib, db = best_target(*targs, eps, tv, **kw)  # the wrapper's CPU route
+    np.testing.assert_array_equal(ib.numpy(), ip.numpy())
+    np.testing.assert_array_equal(db.numpy(), dp.numpy())
+    assert it[70] == 500 and dt[71] == np.inf
+
+    ji, jd, _, _ = _jax_k3(*(jnp.asarray(a) for a in (q, t, t_loc, p1, p2)), jnp.float32(eps),
+                           jnp.asarray(t_valid))
+    answered = np.isfinite(dp.numpy())
+    assert 100 < answered.sum() < len(q)
+    np.testing.assert_array_equal(it.numpy()[answered], ji[answered])
+    np.testing.assert_array_equal(dt.numpy()[answered], jd[answered])
+    assert (jd[~answered & (q_valid if with_q_valid else True)] >= 3e38).all()
+    if with_q_valid:
+        assert (it.numpy()[~q_valid] == 0).all() and np.isinf(dt.numpy()[~q_valid]).all()
+    qv = kw.get("q_valid")
+    perms = spatial_order(targs[2], tv, targs[3], targs[4], qv)
+    live = live_tiles(*tile_boxes(targs[2], targs[3], targs[4], eps, tv, qv, *perms))
+    assert 0.05 < float(live.float().mean()) < 0.95
+
+
+def test_best_target_target_meta_layout():
+    """K3's per-target record in its tile order: x, y, |t|^2 as int32 bits
+    (-1 for invalid targets and the tail of the last 128-target tile), the
+    original index as int32 bits; the order is a permutation with the valid
+    targets first, in strips of y then x."""
+    from ssrlcv_tpu_torch.matching.match_kernel import spatial_order, target_meta
+
+    _, t, t_loc, p1, p2, t_valid, q_valid = _skip_case()
+    tl, tv = torch.from_numpy(t_loc), torch.from_numpy(t_valid)
+    qperm, tperm = spatial_order(tl, tv, torch.from_numpy(p1), torch.from_numpy(p2),
+                                 torch.from_numpy(q_valid))
+    for perm, n in ((qperm, len(p1)), (tperm, len(t))):
+        assert perm.dtype == torch.int64 and sorted(perm.tolist()) == list(range(n))
+    tp = tperm.numpy()
+    assert t_valid[tp[:t_valid.sum()]].all()
+    assert not q_valid[qperm.numpy()[q_valid.sum():]].any()  # q_valid false rows last
+    meta = target_meta(torch.from_numpy(t), tl, tv, tperm)
+    assert meta.shape == (1024, 4) and meta.dtype == torch.float32
+    np.testing.assert_array_equal(meta[:1000, :2].numpy(), t_loc[tp])
+    bits = meta.contiguous().view(torch.int32).numpy()
+    expect = np.where(t_valid, (t.astype(np.int64) ** 2).sum(1), -1)[tp]
+    np.testing.assert_array_equal(bits[:1000, 2], expect)
+    np.testing.assert_array_equal(bits[:1000, 3], tp)
+    assert (bits[1000:, 2] == -1).all()
+
+
 def _features(rng, n, d=128, parent=0):
     from ssrlcv_tpu.core.types import FeatureSet
 
@@ -104,7 +229,9 @@ def test_match_brute_force_matches_jax(metric, index_only):
     """Brute-force matching with seed distances: identical indices,
     distances and validity (squared L2 on 128-wide SIFT descriptors, SAD on
     81-wide windows); for squared L2 the K3 route (backend "kernel", its
-    plain version on the CPU) gives the same."""
+    plain version on the CPU) gives the same on the query slots in the
+    query's mask and (0, +inf) on the others, which are invalid either way
+    (the seed distances of those slots are +inf too)."""
     from ssrlcv_tpu.config import MatchParams
     from ssrlcv_tpu.matching import match as J
     from ssrlcv_tpu_torch.matching import match as T
@@ -115,7 +242,12 @@ def test_match_brute_force_matches_jax(metric, index_only):
     params = MatchParams(absolute_threshold=1e9, relative_threshold=0.99)
     jsd = J.seed_distances(q, seed, chunk=64, metric=metric)
     tsd = T.seed_distances(_port(q), _port(seed), chunk=64, metric=metric)
-    np.testing.assert_array_equal(tsd.numpy(), np.asarray(jsd))
+    qm = np.asarray(q.mask)
+    np.testing.assert_array_equal(tsd.numpy()[qm], np.asarray(jsd)[qm])
+    if metric == "l2sq":
+        assert np.isinf(tsd.numpy()[~qm]).all() and (~qm).any()
+    else:
+        np.testing.assert_array_equal(tsd.numpy(), np.asarray(jsd))
     jd = J.match_brute_force(q, t, params, seed_dist=jsd, chunk=64, index_only=index_only,
                              metric=metric)
     td = T.match_brute_force(_port(q), _port(t), params, seed_dist=tsd, chunk=64,
@@ -123,8 +255,13 @@ def test_match_brute_force_matches_jax(metric, index_only):
     _assert_dm_equal(td, jd)
     assert 0 < int(td.valid.sum()) < 200
     if metric == "l2sq":
-        _assert_dm_equal(T.match_brute_force(_port(q), _port(t), params, seed_dist=tsd,
-                                             backend="kernel", index_only=index_only), jd)
+        kd = T.match_brute_force(_port(q), _port(t), params, seed_dist=tsd, backend="kernel",
+                                 index_only=index_only)
+        np.testing.assert_array_equal(kd.valid.numpy(), np.asarray(jd.valid))
+        np.testing.assert_array_equal(kd.target_idx.numpy()[qm], np.asarray(jd.target_idx)[qm])
+        np.testing.assert_array_equal(kd.distance.numpy()[qm], np.asarray(jd.distance)[qm])
+        assert (kd.target_idx.numpy()[~qm] == 0).all()
+        assert np.isinf(kd.distance.numpy()[~qm]).all()
 
 
 def test_threshold_semantics_match_jax():
@@ -241,6 +378,6 @@ def test_do_feature_matching_routes_modes_as_jax():
     for mode in ("brute", "fmatrix"):
         cfg = PipelineConfig().replace(match=MatchParams(mode=mode, absolute_threshold=1e9))
         st = S.do_feature_matching(S.PipelineState(config=cfg, images=[None, None],
-                                                   features=[f0, f1]))
+                                                   features=[f0, f1], device="cpu"))
         dm = T.match_brute_force(f0, f1, cfg.match)
         assert st.matches.count() == int(dm.valid.sum()) > 0

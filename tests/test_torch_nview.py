@@ -241,7 +241,9 @@ def test_match_index_only_threshold_matches_jax(scene3_features):
     tc = _port(cams, Cameras)
     jsd = JM.seed_distances(feats[0], seed)
     tsd = TM.seed_distances(tf[0], _port(seed, FeatureSet))
-    np.testing.assert_array_equal(tsd.numpy(), np.asarray(jsd))
+    qm = np.asarray(feats[0].mask)  # K3 answers the slots in the mask, +inf elsewhere
+    np.testing.assert_array_equal(tsd.numpy()[qm], np.asarray(jsd)[qm])
+    assert np.isinf(tsd.numpy()[~qm]).all()
     masks = []
     for index_only in (False, True):
         j = JM.match_double_constrained(feats[0], feats[1], cams, 0, 1, mp, seed_dist=jsd,

@@ -47,9 +47,10 @@ def test_slice_matches_jax(scene, tmp_path, mode):
     from ssrlcv_tpu_torch.pipeline import stages as T
 
     cfg = _config(tmp_path / "torch", mode)
-    ts = T.PipelineState(config=cfg, images=scene.images,
-                         seed_features=generate_features(scene.seed_image.pixels, cfg.sift, -1))
-    ts = T.run_pipeline(ts, "cpu")
+    ts = T.PipelineState(config=cfg, images=scene.images, device="cpu",
+                         seed_features=generate_features(scene.seed_image.pixels, cfg.sift, -1,
+                                                         device="cpu"))
+    ts = T.run_pipeline(ts)
 
     js = J.PipelineState(config=cfg.replace(output_dir=str(tmp_path / "jax")),
                          images=scene.images)
@@ -81,7 +82,7 @@ def test_slice_matches_jax(scene, tmp_path, mode):
     pairs = [(tkey[tuple(k)], j) for j, k in enumerate(jloc) if tuple(k) in tkey]
     assert len(pairs) >= 0.99 * jm.sum()
     ti, ji = np.array(pairs).T
-    tpc, _ = triangulate_matches(ts.matches, T.cameras_from_refimages(scene.images))
+    tpc, _ = triangulate_matches(ts.matches, T.cameras_from_refimages(scene.images, "cpu"))
     jpc, _ = jax_tri(js.matches, cameras_from_refimages(scene.images))
     tp = tpc.points.numpy()[tm][ti]
     jp = np.asarray(jpc.points)[jm][ji]
@@ -101,26 +102,39 @@ def test_slice_matches_jax(scene, tmp_path, mode):
 
 
 def test_port_imports_no_jax():
-    """Importing the package and every module of the slice leaves jax out
-    of sys.modules (in a fresh interpreter)."""
-    mods = ["ssrlcv_tpu_torch", "ssrlcv_tpu_torch.synthetic",
-            "ssrlcv_tpu_torch.pipeline.stages", "ssrlcv_tpu_torch.features.sift",
-            "ssrlcv_tpu_torch.matching.match", "ssrlcv_tpu_torch.geometry.filters",
-            "ssrlcv_tpu_torch.ba.two_view", "ssrlcv_tpu_torch._cuda",
-            "ssrlcv_tpu_torch.features.patches", "ssrlcv_tpu_torch.matching.match_mma",
-            "ssrlcv_tpu_torch.bench.gather_patches", "ssrlcv_tpu_torch.bench.timing",
-            "ssrlcv_tpu_torch.pipeline.sfm", "ssrlcv_tpu_torch.io.images",
-            "ssrlcv_tpu_torch.io.checkpoint", "ssrlcv_tpu_torch.matching.tracks",
-            "ssrlcv_tpu_torch.ba.nview", "ssrlcv_tpu_torch.pose.lm",
-            "ssrlcv_tpu_torch.pose.ransac", "ssrlcv_tpu_torch.geometry.triangulation",
-            "ssrlcv_tpu_torch.core.camera_math"]
-    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
-            + "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
-            + "assert not bad, bad\nprint('ok')\n")
+    """Importing every module of the package (walked with pkgutil) leaves
+    jax and the JAX package (ssrlcv_tpu, ssrlcv_tpu.*) out of sys.modules,
+    in a fresh interpreter."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ssrlcv_tpu_torch as P\n"
+        "mods = [m.name for m in pkgutil.walk_packages(P.__path__, 'ssrlcv_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ssrlcv_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 40  # every subpackage was walked
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py, parsed: no import statement anywhere in it names jax
+    or ssrlcv_tpu (a module of the JAX package)."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "ssrlcv_tpu_torch.pipeline.stages" in names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "ssrlcv_tpu", "bench")], names
 
 
 def _jax_values(name):
