@@ -356,17 +356,30 @@ def _library_best(q_desc, q_mask, t_desc, t_mask):
     return lambda: torch.min(tn[None, :] - 2 * torch._int_mm(q8, t8.t()), dim=1), qn
 
 
-def _gated_pairs(f0_mask, t_valid, p1, p2, t_loc, eps) -> int:
-    """(query, target) pairs the epipolar gate admits among the live
-    queries and valid targets: the pairs whose distance the pass needs."""
+def _gated_pairs(q_mask, t_valid, p1, p2, t_loc, eps) -> int:
+    """(query, target) pairs the gate admits (the epipolar test, or every
+    target for a row with p1.x not finite) among the queries of ``q_mask``
+    and the targets of ``t_valid``: the pairs whose distance the pass
+    needs."""
     from ssrlcv_tpu_torch.matching.match_kernel import epipolar_segment_mask
 
-    rows = torch.nonzero(f0_mask).squeeze(1)
+    rows = torch.nonzero(q_mask).squeeze(1)
     n = 0
     for s0 in range(0, rows.shape[0], 1024):
         r = rows[s0:s0 + 1024]
-        n += int((epipolar_segment_mask(p1[r], p2[r], t_loc, eps) & t_valid[None, :]).sum())
+        gate = epipolar_segment_mask(p1[r], p2[r], t_loc, eps) | ~torch.isfinite(p1[r, 0:1])
+        n += int((gate & t_valid[None, :]).sum())
     return n
+
+
+def _evaluated_pairs(t_loc, t_valid, p1, p2, eps, q_valid) -> int:
+    """Pairs in the (16-row, 128-target) tiles that K3 (and, with q_valid
+    None and the admissible targets, K4) evaluates after its tile skip."""
+    from ssrlcv_tpu_torch.matching.match_kernel import live_tiles, spatial_order, tile_boxes
+
+    perms = spatial_order(t_loc, t_valid, p1, p2, q_valid)
+    live = live_tiles(*tile_boxes(t_loc, p1, p2, eps, t_valid, q_valid, *perms))
+    return int(live.sum()) * 16 * 128
 
 
 def phase_kernels_match(scene, dev):
@@ -376,9 +389,9 @@ def phase_kernels_match(scene, dev):
     from ssrlcv_tpu_torch.config import MatchParams, SIFTParams
     from ssrlcv_tpu_torch.core import camera_math
     from ssrlcv_tpu_torch.features.sift import generate_features
-    from ssrlcv_tpu_torch.matching.match_kernel import (best_target, best_target_plain,
-                                                        live_tiles, spatial_order, tile_boxes)
-    from ssrlcv_tpu_torch.matching.match_mma import best_target_mma, best_target_mma_plain
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target, best_target_plain
+    from ssrlcv_tpu_torch.matching.match_mma import (admissible, best_target_mma,
+                                                     best_target_mma_plain)
     from ssrlcv_tpu_torch.pipeline.stages import cameras_from_refimages
 
     params = SIFTParams()
@@ -394,16 +407,20 @@ def phase_kernels_match(scene, dev):
     p1, p2 = p1.contiguous(), p2.contiguous()
     inf2 = torch.full((f0.capacity, 2), torch.inf, device=dev)
     live = int(f0.mask.sum())
+    every_row = torch.ones_like(f0.mask)
     cases = {
-        "seed": ((f0.descriptors, seed_fs.descriptors, seed_fs.loc, inf2, inf2, 0.0,
-                  seed_fs.mask), live * int(seed_fs.mask.sum())),
-        "constrained": ((f0.descriptors, f1.descriptors, f1.loc, p1, p2, mp.epsilon, f1.mask),
-                        _gated_pairs(f0.mask, f1.mask, p1, p2, f1.loc, mp.epsilon)),
+        "seed": (f0.descriptors, seed_fs.descriptors, seed_fs.loc, inf2, inf2, 0.0,
+                 seed_fs.mask),
+        "constrained": (f0.descriptors, f1.descriptors, f1.loc, p1, p2, mp.epsilon, f1.mask),
     }
     k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "no_q_valid_ms": 0.0, "io": 0,
           "ops": 0}
-    k4 = {"ms": 0.0, "plain_ms": 0.0, "launches": 0}
-    for name, (args, pairs) in cases.items():
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "launches": 0, "io": 0, "ops": 0}
+    for name, args in cases.items():
+        # K3 answers the live rows (q_valid), K4 every row of the capacity
+        pairs = _gated_pairs(f0.mask, args[6], args[3], args[4], args[2], args[5])
+        adm = admissible(args[2], args[6])
+        pairs4 = _gated_pairs(every_row, adm, args[3], args[4], args[2], args[5])
         qv = {"q_valid": f0.mask}  # as the main path calls it
         # without q_valid (every row answered), then with it
         same, (ia, da) = _same_twice(lambda: best_target(*args))
@@ -431,10 +448,7 @@ def phase_kernels_match(scene, dev):
         t_l = cuda_ms(lib, 3, "library")
         del lib
         io = _nbytes(*args[:5], args[6], f0.mask, ik, dk)
-        box_args = (args[2], args[3], args[4], args[5], args[6], f0.mask)
-        live_t = live_tiles(*tile_boxes(*box_args, *spatial_order(args[2], args[6], args[3],
-                                                                  args[4], f0.mask)))
-        evaluated = int(live_t.sum()) * 16 * 128
+        evaluated = _evaluated_pairs(args[2], args[6], args[3], args[4], args[5], f0.mask)
         b = bound(io, 2 * 128 * pairs, H100_INT8_PER_S)
         for key, v in (("ms", t_k), ("no_q_valid_ms", t_a), ("plain_ms", t_p),
                        ("library_ms", t_l), ("io", io), ("ops", 2 * 128 * pairs)):
@@ -456,14 +470,22 @@ def phase_kernels_match(scene, dev):
         unanswered = _check_k4(name, k4_out, (ia, da), best_target_mma_plain(*args))
         t4 = cuda_ms(lambda: best_target_mma(*args), 5, "K4")
         t4p = cuda_ms(lambda: best_target_mma_plain(*args), 1, "K4 plain")
-        k4["ms"], k4["plain_ms"] = k4["ms"] + t4, k4["plain_ms"] + t4p
-        print(f"[kernels] K4 {name}: {nq} x {nt} capacity, idx and dist bit-identical to K3 "
-              f"and to its plain version, {unanswered} queries without an admissible target at "
-              f"(0, 3.0e38); {t4:.3f} ms vs K3 {t_a:.3f} ms (no q_valid) vs plain {t4p:.3f} ms; "
-              f"{2 * nq * nt * 128 / t4 / 1e9:.1f} effective int8 TOPS")
+        io4 = _nbytes(*args[:5], args[6], *k4_out)
+        evaluated4 = _evaluated_pairs(args[2], adm, args[3], args[4], args[5], None)
+        b4 = bound(io4, 2 * 128 * pairs4, H100_INT8_PER_S)
+        for key, v in (("ms", t4), ("plain_ms", t4p), ("io", io4), ("ops", 2 * 128 * pairs4)):
+            k4[key] += v
+        print(f"[kernels] K4 {name}: {nq} x {nt} capacity (every row, {int(adm.sum())} "
+              f"admissible targets, {pairs4} pairs needing a distance, {evaluated4} in the tiles "
+              f"evaluated), idx and dist bit-identical to K3 and to its plain version, "
+              f"{unanswered} queries without an admissible target at (0, 3.0e38); {t4:.4f} ms vs "
+              f"K3 {t_a:.4f} ms (no q_valid) vs plain {t4p:.3f} ms; bound {b4['bound_ms']:.4f} ms "
+              f"({b4['bound_by']}); {2 * 128 * pairs4 / t4 / 1e9:.1f} int8 TOPS on the pairs "
+              f"needed")
     b3 = bound(k3.pop("io"), k3.pop("ops"), H100_INT8_PER_S)
+    b4 = bound(k4.pop("io"), k4.pop("ops"), H100_INT8_PER_S)
     return {"best_target": {"max_abs_err": 0.0, **k3, **b3},
-            "best_target_mma": {"max_abs_err": 0.0, **k4, **b3,
+            "best_target_mma": {"max_abs_err": 0.0, **k4, **b4,
                                 "library_ms": k3["library_ms"]}}
 
 

@@ -16,8 +16,11 @@
 
 #define SSRLCV_PI 3.14159265358979323846
 
-// floor-mod with the sign of the divisor (torch.remainder / jnp.mod)
+// floor-mod with the sign of the divisor (torch.remainder / jnp.mod).  For
+// b > 0 and 0 <= a < 2b the result is a or a - b, exact (Sterbenz), as
+// fmodf's, without fmodf's loop; elsewhere fmodf.
 __device__ __forceinline__ float floor_mod(float a, float b) {
+  if (a >= 0.0f && a < 2.0f * b) return a < b ? a : __fsub_rn(a, b);
   float r = fmodf(a, b);
   if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r += b;
   return r;
@@ -79,6 +82,12 @@ __device__ __forceinline__ bool epi_gate_pass(const EpiGate& g, float tx, float 
 
 // ---- Fragment and copy helpers of the tensor-core matchers (K3 match.cu,
 // K4 match_mma.cu) ----
+
+// boxes (ylo, yhi, xlo, xhi): a query slots' band and a target tile's ranges
+// (an empty tile has ylo > yhi and meets nothing)
+__device__ __forceinline__ bool overlaps(float4 q, float4 t) {
+  return t.x <= t.y && q.x <= t.y && q.y >= t.x && q.z <= t.w && q.w >= t.z;
+}
 
 // c += a * b on the tensor cores: m16n8k32, row-major A (16 x 32 bytes),
 // column-major B (32 x 8 bytes), u8 x u8 -> s32, exact.  Register i of a

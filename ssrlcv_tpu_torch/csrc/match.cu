@@ -268,11 +268,6 @@ match_layout(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
   }
 }
 
-// boxes (ylo, yhi, xlo, xhi): a query slots' band and a target tile's ranges
-__device__ __forceinline__ bool overlaps(float4 q, float4 t) {
-  return t.x <= t.y && q.x <= t.y && q.y >= t.x && q.z <= t.w && q.w >= t.z;
-}
-
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 match_best_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ t,
                   const int* __restrict__ qn, const float4* __restrict__ tmeta,
@@ -438,9 +433,29 @@ extern "C" int ssrlcv_match_keys(const void* t_loc, const void* t_valid, int nt,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Step 2: the layout (qn (nq,) int32, meta (ntiles * 128,) float4, qbox
-// (ceil(nq / 16),) float4, tbox (ntiles,) float4), then the best targets
-// (scratch: nq 8-byte words for the running (d, idx) of every row).
+// Step 2a: the layout in the orders qperm / tperm (qn (nq,) int32, meta
+// (ntiles * 128,) float4, qbox (ceil(nq / 16),) float4, tbox (ntiles,)
+// float4).  K4 (match_mma.cu) takes the same layout through its wrapper.
+extern "C" int ssrlcv_match_layout(const void* q, const void* t, const void* t_loc,
+                                   const void* t_valid, const void* p1, const void* p2,
+                                   const void* q_valid, const void* qperm, const void* tperm,
+                                   float eps, int nq, int nt, void* qn, void* meta, void* qbox,
+                                   void* tbox, void* stream) {
+  if (nq == 0) return 0;
+  const int ntiles = max((nt + kT - 1) / kT, 1);
+  match_layout<<<ntiles + (nq + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
+      static_cast<const float*>(t_loc), static_cast<const uint8_t*>(t_valid),
+      static_cast<const float*>(p1), static_cast<const float*>(p2),
+      static_cast<const uint8_t*>(q_valid), static_cast<const long long*>(qperm),
+      static_cast<const long long*>(tperm), eps, nq, nt, ntiles, static_cast<int*>(qn),
+      static_cast<float4*>(meta), static_cast<float4*>(qbox), static_cast<float4*>(tbox));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step 2: the layout (step 2a), then the best targets (scratch: nq 8-byte
+// words for the running (d, idx) of every row).
 extern "C" int ssrlcv_match_best(const void* q, const void* t, const void* t_loc,
                                  const void* t_valid, const void* p1, const void* p2,
                                  const void* q_valid, const void* qperm, const void* tperm,
@@ -450,14 +465,9 @@ extern "C" int ssrlcv_match_best(const void* q, const void* t, const void* t_loc
   if (nq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntiles = max((nt + kT - 1) / kT, 1);
-  match_layout<<<ntiles + (nq + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0, st>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
-      static_cast<const float*>(t_loc), static_cast<const uint8_t*>(t_valid),
-      static_cast<const float*>(p1), static_cast<const float*>(p2),
-      static_cast<const uint8_t*>(q_valid), static_cast<const long long*>(qperm),
-      static_cast<const long long*>(tperm), eps, nq, nt, ntiles, static_cast<int*>(qn),
-      static_cast<float4*>(meta), static_cast<float4*>(qbox), static_cast<float4*>(tbox));
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = static_cast<cudaError_t>(ssrlcv_match_layout(
+      q, t, t_loc, t_valid, p1, p2, q_valid, qperm, tperm, eps, nq, nt, qn, meta, qbox, tbox,
+      stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   auto* best = static_cast<unsigned long long*>(scratch);
   e = cudaMemsetAsync(best, 0xff, sizeof(unsigned long long) * nq, st);

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel ssrlcv_tpu/features/orient_kernel.py
 // (_orient_kernel, wrapper orientation_histograms).  Plain version:
-// ssrlcv_tpu_torch/features/orient_kernel.py::orientation_histograms_plain.
+// ssrlcv_tpu_torch/features/orient_kernel.py::orientation_histograms_plain;
+// orientation_histograms_lanes there restates this kernel's summation order.
 //
 // For keypoint k with centre (cx, cy) = (rint(x), rint(y)) and window
 // r = min(win_k, w_max), every integer offset |dx|,|dy| <= r samples the
@@ -10,21 +11,35 @@
 //   weight = |g| * exp(-(dx^2+dy^2) / denom_k)
 // to bin clip(floor(mod(atan2(gy,gx) + 2pi, 2pi) * 18/pi), 0, 35).
 //
-// What bounds it on the H100: at the main path's shapes (a 2048^2 plane,
-// ~8k keypoints, windows up to 45^2) the work is ~16M samples: a few tens
-// of MB of scattered 4-byte reads that mostly hit L1/L2 (neighbouring
-// keypoints share rows), and an atan2f + expf per sample.  It is latency
-// bound, not bandwidth bound.
+// What bounds it on the H100: the bytes.  Each input read once and each
+// output written once -- the two gradient planes (2 x 16 MB at octave 0 of a
+// 1024^2 image, for each of the three blur buckets), the keypoints and their
+// histograms -- take ~0.03 ms at 3.35 TB/s; the ~40 fp32 operations of each
+// window sample take less at 67 TFLOP/s (chip_smoke.py computes both).
 //
-// Design: one block per keypoint (no cross-block reduction).  Phase 1: the
-// block's threads compute each window sample's (weight, bin) into shared
-// memory.  Phase 2: thread b sums the weights of bin b in fixed row-major
-// sample order -- deterministic, no float atomics.  The TPU kernel's patch
-// DMAs, KB=8 keypoint groups and (8,128) alignment are gone: a block reads
-// its samples straight from device memory through the cache.
+// What held the first design back: one 128-thread block per keypoint; after
+// every sample's (weight, bin) was written to shared memory, 36 threads each
+// walked all n <= (2 w_max + 1)^2 samples of the window and kept those of
+// their own bin.  Every sample was read 36 times, about 10 warp-instructions
+// per sample against about 2 for computing it, while 92 threads idled.
+//
+// Design: one warp per keypoint, 8 keypoints a block.  Lane l takes samples
+// l, l+32, ... in row-major order, so neighbouring lanes read neighbouring
+// pixels of a row.  Each sample's weight and bin are computed once, in
+// registers, and added once into the lane's own 36-bin histogram in shared
+// memory, laid out [bin][lane] so that lane l always hits bank l (4.6 KB a
+// warp; no atomics).  At the end lane j < 18 sums bins j and j+18 over the
+// 32 lanes in a fixed order, starting at lane j (the 18 reads of a step hit
+// 18 banks): the result is the same on every run.  The window and the
+// Gaussian denominator are computed per keypoint from sigma in the kernel,
+// so that a call is one launch, and the floor-mod of the angle takes no
+// fmodf (floor_mod, common.cuh).
 //
 // Parity with the plain version:
 //  * rounding of the centre is rint (half to even), as torch.round;
+//  * window_and_denom's window and denominator, each product and quotient
+//    rounded to float32 in its order, as torch rounds a float32 tensor times
+//    a Python float;
 //  * the angle uses floor-mod (torch.remainder / jnp.mod), not C fmodf,
 //    and its bin is floor(angle * float(18/pi)) on both sides (a product,
 //    so no device is free to turn a division into a reciprocal product);
@@ -37,73 +52,86 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;  // keypoints per block, one warp each
+constexpr int kBins = 36;
 
-__global__ void orient_hist_kernel(const float* __restrict__ gx, const float* __restrict__ gy,
-                                   int h, int w, const float* __restrict__ loc,
-                                   const float* __restrict__ win, const float* __restrict__ denom,
-                                   int w_max, float* __restrict__ hist) {
-  extern __shared__ float smem[];
-  const int side_max = 2 * w_max + 1;
-  float* s_w = smem;                                             // side_max^2 weights
-  unsigned char* s_bin = reinterpret_cast<unsigned char*>(smem + side_max * side_max);
+__global__ void __launch_bounds__(kWarps * 32)
+orient_hist_kernel(const float* __restrict__ gx, const float* __restrict__ gy, int h, int w,
+                   const float* __restrict__ loc, const float* __restrict__ sigma, int nk,
+                   int w_max, float pixel_width, float lambda_o, float two_lambda_sq,
+                   float* __restrict__ hist) {
+  __shared__ float s_hist[kWarps][kBins * 32];  // per warp: [bin][lane] partial sums
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (k >= nk) return;  // a whole warp: no block-wide barrier follows
+  float* hw = s_hist[threadIdx.x >> 5];
+#pragma unroll
+  for (int b = 0; b < kBins; ++b) hw[b * 32 + lane] = 0.0f;
 
-  const int k = blockIdx.x;
-  const float wk = win[k];
+  // window_and_denom's window ceil(sigma * 3 * lambda / pw) and Gaussian
+  // denominator (2 lambda^2) * sigma * sigma, rounded as torch rounds them
+  const float sk = sigma[k];
+  const float wk = ceilf(__fdiv_rn(__fmul_rn(__fmul_rn(sk, 3.0f), lambda_o), pixel_width));
+  const float dn = __fmul_rn(__fmul_rn(two_lambda_sq, sk), sk);
   // keypoints whose window is NaN or negative contribute nothing
   const int r = (wk >= 0.0f) ? static_cast<int>(fminf(wk, static_cast<float>(w_max))) : -1;
   const int side = 2 * r + 1;
   const int n = r >= 0 ? side * side : 0;
   const int cx = __float2int_rn(loc[2 * k]);
   const int cy = __float2int_rn(loc[2 * k + 1]);
-  const float dn = denom[k];
   const float two_pi = static_cast<float>(2.0 * SSRLCV_PI);
   const float inv_rad10 = static_cast<float>(18.0 / SSRLCV_PI);
 
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    const int dy = s / side - r;
-    const int dx = s % side - r;
+  // sample s = lane + 32 i sits at (dy, dx) = (s / side - r, s % side - r);
+  // stepping s by 32 moves dx by 32 % side and dy by 32 / side, plus a carry
+  const int step_y = 32 / side, step_x = 32 % side;
+  int dy = lane / side - r, dx = lane % side - r;
+#pragma unroll 2
+  for (int s = lane; s < n; s += 32) {
     const int xi = clampi(cx + dx, 0, w - 1);
     const int yi = clampi(cy + dy, 0, h - 1);
-    const float vx = gx[static_cast<size_t>(yi) * w + xi];
-    const float vy = gy[static_cast<size_t>(yi) * w + xi];
+    const float vx = __ldg(gx + static_cast<size_t>(yi) * w + xi);
+    const float vy = __ldg(gy + static_cast<size_t>(yi) * w + xi);
     const float d2 = static_cast<float>(dx * dx + dy * dy);
     const float wt = __fmul_rn(mag_rn(vx, vy), expf(__fdiv_rn(-d2, dn)));
     const float ang = floor_mod(__fadd_rn(atan2f(vy, vx), two_pi), two_pi);
     float b = floorf(__fmul_rn(ang, inv_rad10));
     b = fminf(fmaxf(b, 0.0f), 35.0f);
-    s_w[s] = wt;
-    s_bin[s] = static_cast<unsigned char>(b);
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 36) {
-    const unsigned char mine = static_cast<unsigned char>(threadIdx.x);
-    float acc = 0.0f;
-    for (int s = 0; s < n; ++s) {
-      if (s_bin[s] == mine) acc += s_w[s];
+    float* acc = hw + static_cast<int>(b) * 32 + lane;
+    *acc = __fadd_rn(*acc, wt);
+    dx += step_x;
+    dy += step_y;
+    if (dx > r) {
+      dx -= side;
+      ++dy;
     }
-    hist[static_cast<size_t>(k) * 36 + threadIdx.x] = acc;
+  }
+  __syncwarp();
+
+  // lane j < 18: bins j and j + 18, each summed over lanes j, j+1, ..., j+31
+  // (mod 32) in that order
+  if (lane < kBins / 2) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int b = lane + half * (kBins / 2);
+      float acc = 0.0f;
+      for (int i = 0; i < 32; ++i) acc = __fadd_rn(acc, hw[b * 32 + ((lane + i) & 31)]);
+      hist[static_cast<size_t>(k) * kBins + b] = acc;
+    }
   }
 }
 
 }  // namespace
 
 extern "C" int ssrlcv_orient_hist(const void* gx, const void* gy, int h, int w, const void* loc,
-                                  const void* win, const void* denom, int k, int w_max,
-                                  void* hist, void* stream) {
+                                  const void* sigma, int k, int w_max, float pixel_width,
+                                  float lambda_o, float two_lambda_sq, void* hist,
+                                  void* stream) {
   if (k == 0) return 0;
-  const int side = 2 * w_max + 1;
-  const size_t smem = static_cast<size_t>(side) * side * (sizeof(float) + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(orient_hist_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  orient_hist_kernel<<<k, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  orient_hist_kernel<<<(k + kWarps - 1) / kWarps, kWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(gx), static_cast<const float*>(gy), h, w,
-      static_cast<const float*>(loc), static_cast<const float*>(win),
-      static_cast<const float*>(denom), w_max, static_cast<float*>(hist));
+      static_cast<const float*>(loc), static_cast<const float*>(sigma), k, w_max, pixel_width,
+      lambda_o, two_lambda_sq, static_cast<float*>(hist));
   return static_cast<int>(cudaGetLastError());
 }

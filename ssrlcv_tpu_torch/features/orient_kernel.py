@@ -24,21 +24,18 @@ INV_RAD10 = 18.0 / math.pi  # bin = floor(angle * 18/pi): a product on every dev
 
 def window_and_denom(sigma: torch.Tensor, pixel_width: float, lambda_o: float):
     """Per-keypoint window half-width ceil(3*lambda*sigma/pw) and Gaussian
-    denominator 2*lambda^2*sigma^2 (the kernel and the plain version share
-    these tensors)."""
+    denominator 2*lambda^2*sigma^2, each operation rounded to float32 (the
+    kernel computes the same per keypoint)."""
     win = torch.ceil(sigma * 3.0 * lambda_o / pixel_width)
     denom = 2.0 * lambda_o * lambda_o * sigma * sigma
     return win.contiguous(), denom.contiguous()
 
 
-def orientation_histograms_plain(gx, gy, loc, sigma, pixel_width: float, w_max: int,
-                                 lambda_o: float, sample=None) -> torch.Tensor:
-    """(K, 36) float32 weighted orientation histograms by sampling the
-    (2*w_max+1)^2 grid around each keypoint, masked to its own window.
-
-    ``sample(sl, yi, xi)`` reads the gradients at plane coordinates: by
-    default the planes themselves (``patches.plane_sampler``); the
-    ``use_patches`` route passes ``patches.patch_sampler``."""
+def _window_terms(gx, gy, loc, sigma, pixel_width: float, w_max: int, lambda_o: float,
+                  sample=None):
+    """Per keypoint and offset of the (2*w_max+1)^2 grid (rows dy, columns
+    dx): the weight, masked to the keypoint's own window, and the bin; and
+    the windows."""
     h, w = gx.shape
     win, denom = window_and_denom(sigma, pixel_width, lambda_o)
     dev = gx.device
@@ -57,8 +54,53 @@ def orientation_histograms_plain(gx, gy, loc, sigma, pixel_width: float, w_max: 
     wgt = torch.where(in_win, wgt, 0.0)
     ang = torch.remainder(torch.atan2(g_y, g_x) + TWO_PI, TWO_PI)
     bins = torch.clamp(torch.floor(ang * INV_RAD10), 0, 35).to(torch.int64)
+    return wgt, bins, win
+
+
+def orientation_histograms_plain(gx, gy, loc, sigma, pixel_width: float, w_max: int,
+                                 lambda_o: float, sample=None) -> torch.Tensor:
+    """(K, 36) float32 weighted orientation histograms by sampling the
+    (2*w_max+1)^2 grid around each keypoint, masked to its own window.
+
+    ``sample(sl, yi, xi)`` reads the gradients at plane coordinates: by
+    default the planes themselves (``patches.plane_sampler``); the
+    ``use_patches`` route passes ``patches.patch_sampler``."""
+    wgt, bins, _ = _window_terms(gx, gy, loc, sigma, pixel_width, w_max, lambda_o, sample)
     return torch.stack(
         [torch.where(bins == b, wgt, 0.0).sum(dim=(1, 2)) for b in range(36)], dim=1)
+
+
+def orientation_histograms_lanes(gx, gy, loc, sigma, pixel_width: float, w_max: int,
+                                 lambda_o: float) -> torch.Tensor:
+    """``orientation_histograms_plain`` summed in K1's order: lane l of a
+    keypoint's warp adds samples l, l+32, ... of its window (row-major over
+    the (2r+1)^2 offsets, r = min(win, w_max)) into its own histogram, in
+    that order; then bin b is the sum over lanes j, j+1, ..., j+31 (mod 32),
+    j = b mod 18, in that order.  Every addition is one float32 rounding, as
+    in the kernel."""
+    wgt, bins, win = _window_terms(gx, gy, loc, sigma, pixel_width, w_max, lambda_o)
+    k = loc.shape[0]
+    r = torch.where(win >= 0, torch.clamp(win, max=w_max), -1.0).to(torch.int64)
+    lanes = torch.zeros((k, 32, 36), dtype=torch.float32, device=gx.device)
+    for rv in r.unique().tolist():
+        if rv < 0:
+            continue  # a NaN or negative window adds nothing
+        sel = torch.nonzero(r == rv).squeeze(1)
+        n = (2 * rv + 1) ** 2
+        win_sl = slice(w_max - rv, w_max + rv + 1)
+        wg = wgt[sel][:, win_sl, win_sl].reshape(-1, n)
+        bn = bins[sel][:, win_sl, win_sl].reshape(-1, n)
+        acc = torch.zeros((sel.shape[0], 32, 36), dtype=torch.float32, device=gx.device)
+        rows = torch.arange(sel.shape[0], device=gx.device)[:, None]
+        for s0 in range(0, n, 32):
+            s = torch.arange(s0, min(s0 + 32, n), device=gx.device)
+            acc[rows, (s - s0)[None, :], bn[:, s]] += wg[:, s]
+        lanes[sel] = acc
+    b = torch.arange(36, device=gx.device)
+    out = torch.zeros((k, 36), dtype=torch.float32, device=gx.device)
+    for t in range(32):
+        out = out + lanes[:, (b % 18 + t) % 32, b]
+    return out
 
 
 def _check(gx, gy, loc, sigma):
@@ -95,10 +137,10 @@ def orientation_histograms(gx, gy, loc, sigma, pixel_width: float, w_max: int,
     hist = torch.empty((k, 36), dtype=torch.float32, device=gx.device)
     if k == 0:
         return hist
-    win, denom = window_and_denom(sigma, pixel_width, lambda_o)
     rc = _cuda.library().ssrlcv_orient_hist(
-        gx.data_ptr(), gy.data_ptr(), h, w, loc.data_ptr(), win.data_ptr(),
-        denom.data_ptr(), k, w_max, hist.data_ptr(), _cuda.stream_ptr(gx.device))
+        gx.data_ptr(), gy.data_ptr(), h, w, loc.data_ptr(), sigma.data_ptr(), k, w_max,
+        float(pixel_width), float(lambda_o), 2.0 * lambda_o * lambda_o, hist.data_ptr(),
+        _cuda.stream_ptr(gx.device))
     _cuda.check(rc, "ssrlcv_orient_hist")
     orientation_histograms.launches += 1
     return hist

@@ -234,6 +234,33 @@ def target_meta(t_desc, t_loc, t_valid, tperm):
     return meta
 
 
+def device_orders(t_loc, t_valid, p1, p2, q_valid=None):
+    """``spatial_order`` on the device: the sort keys from
+    ``ssrlcv_match_keys`` (match.cu), then their stable sorts -> (qperm,
+    tperm)."""
+    nq, nt, dev = p1.shape[0], t_loc.shape[0], t_loc.device
+    ext = torch.empty((4,), dtype=torch.float64, device=dev)
+    tkey = torch.empty((nt,), dtype=torch.float64, device=dev)
+    qkey = torch.empty((nq,), dtype=torch.float64, device=dev)
+    qv = q_valid.data_ptr() if q_valid is not None else None
+    _cuda.check(_cuda.library().ssrlcv_match_keys(
+        t_loc.data_ptr(), t_valid.data_ptr(), nt, p1.data_ptr(), p2.data_ptr(), qv, nq,
+        ext.data_ptr(), tkey.data_ptr(), qkey.data_ptr(), _cuda.stream_ptr(dev)),
+        "ssrlcv_match_keys")
+    return torch.argsort(qkey, stable=True), torch.argsort(tkey, stable=True)
+
+
+def layout_buffers(nq: int, nt: int, dev):
+    """The device layout's tensors, filled by match.cu's ``match_layout``:
+    qn (Nq,) int32, meta (nT * 128, 4) f32 (``target_meta``), qbox (nQ, 4)
+    and tbox (nT, 4) f32 (``tile_boxes``)."""
+    ntiles = max(-(-nt // TT), 1)
+    return (torch.empty((nq,), dtype=torch.int32, device=dev),
+            torch.empty((ntiles * TT, 4), dtype=torch.float32, device=dev),
+            torch.empty((-(-nq // QW), 4), dtype=torch.float32, device=dev),
+            torch.empty((ntiles, 4), dtype=torch.float32, device=dev))
+
+
 def best_target(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid, q_valid=None):
     """Best valid target per query and its exact squared-L2 distance.
 
@@ -257,29 +284,18 @@ def best_target(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid, q_valid=
     dist = torch.empty((nq,), dtype=torch.float32, device=q_desc.device)
     if nq == 0:
         return idx, dist
-    # step 1 on the device: sort keys (spatial_order's); the stable sorts here
-    dev, lib, stream = q_desc.device, _cuda.library(), _cuda.stream_ptr(q_desc.device)
-    qv = q_valid.data_ptr() if q_valid is not None else None
-    ext = torch.empty((4,), dtype=torch.float64, device=dev)
-    tkey = torch.empty((nt,), dtype=torch.float64, device=dev)
-    qkey = torch.empty((nq,), dtype=torch.float64, device=dev)
-    _cuda.check(lib.ssrlcv_match_keys(t_loc.data_ptr(), t_valid.data_ptr(), nt, p1.data_ptr(),
-                                      p2.data_ptr(), qv, nq, ext.data_ptr(), tkey.data_ptr(),
-                                      qkey.data_ptr(), stream), "ssrlcv_match_keys")
-    tperm = torch.argsort(tkey, stable=True)
-    qperm = torch.argsort(qkey, stable=True)
-    # step 2: target_meta / tile_boxes on the device, then the matcher
-    ntiles = max(-(-nt // TT), 1)
-    qn = torch.empty((nq,), dtype=torch.int32, device=dev)
-    meta = torch.empty((ntiles * TT, 4), dtype=torch.float32, device=dev)
-    qbox = torch.empty((-(-nq // QW), 4), dtype=torch.float32, device=dev)
-    tbox = torch.empty((ntiles, 4), dtype=torch.float32, device=dev)
+    # step 1: the orders; step 2: target_meta / tile_boxes on the device,
+    # then the matcher
+    dev = q_desc.device
+    qperm, tperm = device_orders(t_loc, t_valid, p1, p2, q_valid)
+    layout = layout_buffers(nq, nt, dev)
     scratch = torch.empty((nq,), dtype=torch.int64, device=dev)
-    rc = lib.ssrlcv_match_best(
+    qv = q_valid.data_ptr() if q_valid is not None else None
+    rc = _cuda.library().ssrlcv_match_best(
         q_desc.data_ptr(), t_desc.data_ptr(), t_loc.data_ptr(), t_valid.data_ptr(),
         p1.data_ptr(), p2.data_ptr(), qv, qperm.data_ptr(), tperm.data_ptr(), float(epsilon),
-        nq, nt, qn.data_ptr(), meta.data_ptr(), qbox.data_ptr(), tbox.data_ptr(),
-        scratch.data_ptr(), idx.data_ptr(), dist.data_ptr(), stream)
+        nq, nt, *(b.data_ptr() for b in layout), scratch.data_ptr(), idx.data_ptr(),
+        dist.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(rc, "ssrlcv_match_best")
     best_target.launches += 1
     return idx, dist

@@ -90,6 +90,59 @@ def _mma_case(seed=11):
     return q, t, t_loc, p1, p2, t_valid, unc
 
 
+def _mma_tile_case(seed=19):
+    """K4's tile-schedule cases at Nq = 200 (not a multiple of 128), Nt =
+    1024 with 700 admissible targets in [0, 512)^2, so that one tile of K3's
+    order mixes admissible and inadmissible slots and the last two hold
+    none.  Returns ((q, t, t_loc, p1, p2, t_valid), rows) where rows names
+    the query of each case:
+      tie_in_tile   equal distance to targets 50 and 600, neighbours (one
+                    tile), 600 first in the spatial order;
+      tie_across    equal distance to targets 20 and 400, far apart;
+      far           all-255 query, only the all-0 target 800 in its gate
+                    (d = 128 * 255^2 = 8,323,200);
+      same_max      all-255 query, only the all-255 target 801 in its gate;
+      invalid_only  only target 1000 (t_valid false, equal descriptor) in
+                    its gate;
+      nan_only      unconstrained, equal to target 802 (valid, x = NaN:
+                    not admissible);
+      nothing       no target in its gate."""
+    rng = np.random.default_rng(seed)
+    nq, nt = 200, 1024
+    t = rng.integers(0, 256, (nt, 128)).astype(np.uint8)
+    q = rng.integers(0, 256, (nq, 128)).astype(np.uint8)
+    t_loc = rng.uniform(0, 512, (nt, 2)).astype(np.float32)
+    t_valid = np.zeros(nt, bool)
+    t_valid[:700] = True
+    t_valid[rng.integers(0, 700, 30)] = False
+    t_valid[[20, 50, 400, 600, 800, 801, 802]] = True
+    q[:40] = t[rng.integers(0, 700, 40)]
+    rows = {"tie_in_tile": 60, "tie_across": 61, "far": 62, "same_max": 63,
+            "invalid_only": 64, "nan_only": 65, "nothing": 66}
+    t[50] = t[600]
+    t_loc[600], t_loc[50] = (100.0, 100.0), (100.5, 100.0)
+    q[60] = t[600]
+    t[400] = t[20]
+    t_loc[20], t_loc[400] = (10.0, 10.0), (500.0, 500.0)
+    q[61] = t[20]
+    t[800], t_loc[800], q[62] = 0, (800.0, 800.0), 255
+    t[801], t_loc[801], q[63] = 255, (50.0, 800.0), 255
+    t_loc[1000], q[64] = (900.0, 900.0), t[1000]
+    t_loc[802], q[65] = (np.nan, 700.0), t[802]
+    p1 = rng.uniform(0, 512, (nq, 2)).astype(np.float32)
+    p2 = rng.uniform(0, 512, (nq, 2)).astype(np.float32)
+    for name, (x, y) in (("far", (800.0, 800.0)), ("same_max", (50.0, 800.0)),
+                         ("invalid_only", (900.0, 900.0)), ("nothing", (5000.0, 5000.0))):
+        p1[rows[name]], p2[rows[name]] = (x - 10.0, y), (x + 10.0, y)
+    unc = np.zeros(nq, bool)
+    unc[:30] = True
+    unc[[60, 61, 65]] = True
+    unc[150:170] = True
+    p1[unc] = np.inf
+    p2[unc] = np.inf
+    return (q, t, t_loc, p1, p2, t_valid), rows
+
+
 def _skip_case(seed=13, nq=400, nt=1000):
     """K3's tile-skip cases: queries and targets in y-major order (as SIFT
     emits them; K3 orders them itself), and per 16-row group of queries one
@@ -170,6 +223,50 @@ def test_cuda_orientation_matches_plain(cuda_device):
     torch.testing.assert_close(hk, hp, rtol=1e-4, atol=1e-5)
 
 
+def _orient_edge_case(w_max, seed=23, k=403):
+    """K1's window cases on a 320 x 384 plane: k keypoints (not a multiple of
+    the 8 warps of a block) spread over the whole plane, so that many
+    windows are clamped at its border, four on its corners, windows from 3
+    to 1.2 w_max (the larger cut to w_max), and a NaN, a negative and a
+    -0 window (NaN and negative add nothing; -0 samples the centre only)."""
+    rng = np.random.default_rng(seed)
+    gx, gy = (rng.standard_normal((_H, _W)).astype(np.float32) for _ in range(2))
+    loc = np.stack([rng.uniform(-0.4, _W - 0.6, k), rng.uniform(-0.4, _H - 0.6, k)],
+                   1).astype(np.float32)
+    loc[3:7] = [(0.0, 0.0), (_W - 1.0, _H - 1.0), (-0.4, _H - 0.6), (_W - 0.6, 0.2)]
+    sigma = rng.uniform(0.5, 1.2 * w_max / 4.5, k).astype(np.float32)
+    sigma[:3] = (np.nan, -1.0, -0.1)
+    return gx, gy, loc, sigma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_max", [11, 16, 22, 48])
+def test_cuda_orientation_windows_match_plain(cuda_device, w_max):
+    """K1 at the main path's windows (11, 16, 22) and the widest it takes
+    (48), on border keypoints and NaN, negative and -0 windows: within rtol
+    1e-4 / atol 1e-5 of the plain version on all but at most 0.5 % of the
+    keypoints (K1's gate: atan2f may move a sample lying on a bin edge),
+    equal to itself over two calls, and -- since the card's torch.atan2,
+    torch.exp and float32 sums round as the kernel's -- bit-identical to the
+    restatement of its summation order run on the card."""
+    from ssrlcv_tpu_torch.features.orient_kernel import (orientation_histograms,
+                                                         orientation_histograms_lanes,
+                                                         orientation_histograms_plain)
+
+    gx, gy, loc, sigma = (torch.from_numpy(a).to(cuda_device)
+                          for a in _orient_edge_case(w_max))
+    args = (gx, gy, loc, sigma, 1.0, w_max, 1.5)
+    n = orientation_histograms.launches
+    hk = orientation_histograms(*args)
+    assert orientation_histograms.launches == n + 1
+    assert torch.equal(hk, orientation_histograms(*args))
+    assert (hk[:2] == 0).all() and (hk[2] > 0).sum() == 1
+    hp = orientation_histograms_plain(*args)
+    outside = ~torch.isclose(hk, hp, rtol=1e-4, atol=1e-5).all(dim=1)
+    assert int(outside.sum()) <= 0.005 * hk.shape[0]
+    assert torch.equal(hk, orientation_histograms_lanes(*args))
+
+
 @pytest.mark.cuda
 def test_cuda_descriptor_matches_plain(cuda_device):
     """K2 within float32 rounding of its plain version (rtol 1e-4 /
@@ -241,28 +338,20 @@ def test_cuda_best_target_layout_matches_restatement(cuda_device):
     keys' orders (spatial_order), per-target records (target_meta), boxes
     (tile_boxes) and squared query norms, exactly."""
     from ssrlcv_tpu_torch import _cuda
-    from ssrlcv_tpu_torch.matching.match_kernel import (QW, TT, spatial_order, target_meta,
-                                                        tile_boxes)
+    from ssrlcv_tpu_torch.matching.match_kernel import (device_orders, layout_buffers,
+                                                        spatial_order, target_meta, tile_boxes)
 
     q, t, t_loc, p1, p2, t_valid, q_valid = (torch.from_numpy(a).to(cuda_device)
                                              for a in _skip_case())
     nq, nt = q.shape[0], t.shape[0]
     lib, stream = _cuda.library(), _cuda.stream_ptr(cuda_device)
-    f64 = {"dtype": torch.float64, "device": cuda_device}
-    ext, tkey, qkey = torch.empty(4, **f64), torch.empty(nt, **f64), torch.empty(nq, **f64)
-    assert lib.ssrlcv_match_keys(t_loc.data_ptr(), t_valid.data_ptr(), nt, p1.data_ptr(),
-                                 p2.data_ptr(), q_valid.data_ptr(), nq, ext.data_ptr(),
-                                 tkey.data_ptr(), qkey.data_ptr(), stream) == 0
-    qperm, tperm = torch.argsort(qkey, stable=True), torch.argsort(tkey, stable=True)
+    qperm, tperm = device_orders(t_loc, t_valid, p1, p2, q_valid)
     want_q, want_t = spatial_order(t_loc, t_valid, p1, p2, q_valid)
     assert torch.equal(qperm, want_q) and torch.equal(tperm, want_t)
-    ntiles = -(-nt // TT)
-    f32 = {"dtype": torch.float32, "device": cuda_device}
-    qn = torch.empty(nq, dtype=torch.int32, device=cuda_device)
-    meta, qbox, tbox = (torch.empty(ntiles * TT, 4, **f32), torch.empty(-(-nq // QW), 4, **f32),
-                        torch.empty(ntiles, 4, **f32))
+    qn, meta, qbox, tbox = layout_buffers(nq, nt, cuda_device)
     idx = torch.empty(nq, dtype=torch.int32, device=cuda_device)
-    dist, scratch = torch.empty(nq, **f32), torch.empty(nq, dtype=torch.int64, device=cuda_device)
+    dist = torch.empty(nq, dtype=torch.float32, device=cuda_device)
+    scratch = torch.empty(nq, dtype=torch.int64, device=cuda_device)
     assert lib.ssrlcv_match_best(
         q.data_ptr(), t.data_ptr(), t_loc.data_ptr(), t_valid.data_ptr(), p1.data_ptr(),
         p2.data_ptr(), q_valid.data_ptr(), qperm.data_ptr(), tperm.data_ptr(), 25.0, nq, nt,
@@ -379,6 +468,66 @@ def test_cuda_best_target_mma_matches_plain(cuda_device):
     assert torch.equal(ik[answered], i3[answered]) and torch.equal(dk[answered], d3[answered])
     assert (ik[~answered] == 0).all() and (dk[~answered] == NO_MATCH_DIST).all()
     assert not bool(answered[6]) and int(ik[200]) == 300
+
+
+def _mma_tie_case(seed=29, nq=1000, nt=3000):
+    """Many equal distances: descriptors of 0s and 1s in 8 bytes (the rest
+    0), so a query ties with many targets inside tiles and across them;
+    half the rows constrained to short segments, a tail of padding targets,
+    Nq not a multiple of 128."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((nq, 128), np.uint8)
+    t = np.zeros((nt, 128), np.uint8)
+    q[:, :8] = rng.integers(0, 2, (nq, 8))
+    t[:, :8] = rng.integers(0, 2, (nt, 8))
+    t_loc = rng.uniform(0, 1024, (nt, 2)).astype(np.float32)
+    t_valid = np.ones(nt, bool)
+    t_valid[-700:] = False
+    t_valid[rng.integers(0, nt, 100)] = False
+    c = rng.uniform(0, 1024, (nq, 2)).astype(np.float32)
+    d = rng.normal(0, 1, (nq, 2)).astype(np.float32) * 40
+    p1, p2 = (c - d).astype(np.float32), (c + d).astype(np.float32)
+    p1[::2] = np.inf
+    p2[::2] = np.inf
+    return q, t, t_loc, p1, p2, t_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tile_schedule", "ties"])
+def test_cuda_best_target_mma_tiles_match_plain(cuda_device, case):
+    """K4 on its tile-schedule cases (ties inside a tile and across tiles,
+    an inadmissible target in a live tile, tiles of padding only, all-255
+    queries against all-0 and all-255 targets, a valid target at NaN x, no
+    admissible target) and on a case of many equal distances: idx and dist
+    bit-identical to its plain version and to the restatement of its
+    schedule run on the card, equal to itself over two calls, and equal to
+    K3 (on the admissible targets, without q_valid) on every row K3
+    answers, (0, 3.0e38) on the others."""
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.matching.match_mma import (NO_MATCH_DIST, admissible, best_target_mma,
+                                                     best_target_mma_plain,
+                                                     best_target_mma_tiled)
+
+    arrays, rows = _mma_tile_case() if case == "tile_schedule" else (_mma_tie_case(), {})
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    n = best_target_mma.launches
+    ik, dk = best_target_mma(*args[:5], 25.0, args[5])
+    assert best_target_mma.launches == n + 1
+    ik2, dk2 = best_target_mma(*args[:5], 25.0, args[5])
+    assert torch.equal(ik, ik2) and torch.equal(dk, dk2)
+    for ip, dp in (best_target_mma_plain(*args[:5], 25.0, args[5]),
+                   best_target_mma_tiled(*args[:5], 25.0, args[5])):
+        assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    i3, d3 = best_target(*args[:5], 25.0, admissible(args[2], args[5]))
+    answered = torch.isfinite(d3)
+    assert torch.equal(ik[answered], i3[answered]) and torch.equal(dk[answered], d3[answered])
+    assert (ik[~answered] == 0).all() and (dk[~answered] == NO_MATCH_DIST).all()
+    if rows:
+        assert int(ik[rows["tie_in_tile"]]) == 50 and int(ik[rows["tie_across"]]) == 20
+        assert float(dk[rows["far"]]) == 128 * 255 ** 2 and int(ik[rows["same_max"]]) == 801
+        assert not bool(answered[rows["invalid_only"]]) and not bool(answered[rows["nothing"]])
+    else:
+        assert 0 < int(answered.sum()) < len(answered)
 
 
 @pytest.mark.cuda

@@ -45,6 +45,38 @@ def test_orientation_plain_matches_jax(jax_form):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("jax_form", ["gather", "pallas_interpret"])
+def test_orientation_lane_order_matches_jax_and_plain(jax_form):
+    """The restatement of K1's summation order (orientation_histograms_lanes:
+    per-lane sums in sample order, then the lanes in a fixed order) against
+    _histogram_for_keypoints (its gather form and the Pallas kernel in
+    interpret mode) within the tolerance of
+    test_orientation_plain_matches_jax, rtol 2e-5 / atol 1e-6, and against
+    the plain version within the same; keypoints with a NaN and a negative
+    window give all zeros."""
+    from ssrlcv_tpu.config import SIFTParams
+    from ssrlcv_tpu.features.orientation import _histogram_for_keypoints
+    from ssrlcv_tpu_torch.features.orient_kernel import (orientation_histograms_lanes,
+                                                         orientation_histograms_plain)
+
+    lam = SIFTParams().orientation_contrib_width
+    grads, loc, sigma = _orient_inputs()
+    sigma[0], sigma[1] = np.nan, -1.0
+    blur = jnp.ones((_K,), jnp.int32)
+    mask = jnp.ones((_K,), bool)
+    g = jnp.asarray(grads if jax_form == "gather" else grads[1])
+    ref, _ = _histogram_for_keypoints(g, blur, jnp.asarray(loc), jnp.asarray(sigma), mask, 1.0,
+                                      lam, _WMAX, use_kernel=jax_form == "pallas_interpret")
+    gx, gy = _plane(grads)
+    args = (gx, gy, torch.from_numpy(loc), torch.from_numpy(sigma), 1.0, _WMAX, lam)
+    got = orientation_histograms_lanes(*args)
+    assert got.shape == (_K, 36) and (got[:2] == 0).all() and (got[2:].sum(1) > 0).all()
+    ref = np.nan_to_num(np.asarray(ref))  # the JAX forms give NaN for a NaN window
+    np.testing.assert_allclose(got.numpy()[1:], ref[1:], rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), orientation_histograms_plain(*args).numpy(),
+                               rtol=2e-5, atol=1e-6)
+
+
 def test_descriptor_plain_matches_jax_gather():
     """K2's plain version + epilogue vs fill_descriptors' gather form, on
     uint8 descriptors: within 1, because the histogram sums run in another

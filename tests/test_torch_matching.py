@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_cuda import _mma_case, _skip_case
+from test_torch_cuda import _mma_case, _mma_tile_case, _skip_case
 
 torch.set_num_threads(2)
 
@@ -75,6 +75,57 @@ def test_best_target_mma_plain_matches_jax_pallas_interpret():
     assert (idx.numpy()[~answered] == 0).all()
     assert (dist.numpy()[~answered] == np.float32(NO_MATCH_DIST)).all()
     assert not answered[6] and idx[200] == 300 and dist[200] == 0.0
+
+
+@pytest.mark.parametrize("case", ["tile_schedule", "mma"])
+def test_best_target_mma_tiled_matches_plain_and_jax(case):
+    """The restatement of K4's tile schedule and packed-key tie rule
+    (best_target_mma_tiled) bit-identical to best_target_mma_plain and to
+    the Pallas _match_kernel in interpret mode: equal distances inside one
+    tile (the higher index first in K3's spatial order) and across tiles, an
+    inadmissible target inside a live tile, tiles of padding only,
+    descriptors of all 255 against all 0 (d = 8,323,200) and against all
+    255, a valid target with a NaN location, queries with no admissible
+    target ((0, 3.0e38)), Nq not a multiple of 128."""
+    from ssrlcv_tpu_torch.matching.match_kernel import TT, live_tiles, spatial_order, tile_boxes
+    from ssrlcv_tpu_torch.matching.match_mma import (NO_MATCH_DIST, admissible,
+                                                     best_target_mma_plain,
+                                                     best_target_mma_tiled, tile_sorted)
+
+    eps = 25.0
+    arrays, rows = _mma_tile_case() if case == "tile_schedule" else (_mma_case()[:6], {})
+    targs = [torch.from_numpy(a) for a in arrays]
+    it, dt = best_target_mma_tiled(*targs[:5], eps, targs[5])
+    ip, dp = best_target_mma_plain(*targs[:5], eps, targs[5])
+    assert torch.equal(it, ip) and torch.equal(dt, dp)
+    ji, jd = _jax_k4(*(jnp.asarray(a) for a in arrays[:5]), jnp.float32(eps),
+                     jnp.asarray(arrays[5]))
+    np.testing.assert_array_equal(it.numpy(), ji)
+    np.testing.assert_array_equal(dt.numpy(), jd)
+    if not rows:
+        return
+    got = {name: (int(it[r]), float(dt[r])) for name, r in rows.items()}
+    none = (0, float(np.float32(NO_MATCH_DIST)))
+    assert got == {"tie_in_tile": (50, 0.0), "tie_across": (20, 0.0),
+                   "far": (800, 128 * 255 ** 2), "same_max": (801, 0.0),
+                   "invalid_only": none, "nan_only": got["nan_only"], "nothing": none}
+    assert got["nan_only"][0] != 802
+    # the schedule's preconditions: 600 before 50 in K3's order, both in one
+    # tile; 20 and 400 in two; a live tile that holds inadmissible slots; a
+    # tile of padding only, live for no warp
+    adm = admissible(targs[2], targs[5])
+    qperm, k3_order = spatial_order(targs[2], adm, targs[3], targs[4])
+    pos = torch.empty_like(k3_order)
+    pos[k3_order] = torch.arange(len(k3_order))
+    assert pos[600] < pos[50] and pos[600] // TT == pos[50] // TT
+    assert pos[20] // TT != pos[400] // TT
+    tperm = tile_sorted(k3_order)
+    assert torch.equal(tperm.view(-1, TT).sort(1).values.view(-1), tperm)
+    live = live_tiles(*tile_boxes(targs[2], targs[3], targs[4], eps, adm, None, qperm, tperm))
+    per_tile = adm[tperm].view(-1, TT).sum(1)
+    mixed = (per_tile > 0) & (per_tile < TT)
+    assert mixed.any() and live[:, mixed].any()
+    assert (per_tile == 0).any() and not live[:, per_tile == 0].any()
 
 
 def _jax_k3(q, t, t_loc, p1, p2, eps, t_valid, qt=16, tt=128):
