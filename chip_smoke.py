@@ -34,7 +34,16 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
      checkpoints: stage times, tracks by view count, BA error, the
      reconstruction's checks; then again with the stage-5 marker deleted,
      which must resume at stage 5 and launch no kernel;
-  6. the command line with --pose on the 2-view pair of phase 3.
+  6. the command line with --pose on the 2-view pair of phase 3;
+  7. dense and stereo on image 0 of the scene at 1024^2: 7a dense SIFT's
+     fast path (stencil orientation field, compaction, one K2 launch over
+     every dense keypoint; a warm call split into its parts; K2 alone
+     against its bound and, on the first 65,536 keypoints, its plain
+     version); 7b the gather oracle (K1 over every interior pixel, then K2)
+     against 7a by slot; 7c Window_NxN features, SAD best target on a
+     shifted crop and SAD epipolar matching on the card against the CPU;
+     7d the scanline stereo search on a shifted copy and the epipolar one;
+     7e FAST on the card against the CPU.
 
 Kernel times are device times from CUDA events over back-to-back launches
 queued behind a device-side sleep (ssrlcv_tpu_torch.bench.timing).  Each
@@ -143,7 +152,7 @@ def _k1_samples(sig, pw, lam_o, w_max) -> int:
     return int(((2 * r + 1) ** 2).sum())
 
 
-def _k2_samples(theta, sig, pw, lam_d, w_max) -> int:
+def _k2_samples(theta, sig, pw, lam_d, w_max, chunk: int = 1024) -> int:
     """Window samples K2 evaluates: lattice offsets |dx|,|dy| <= min(win,
     w_max) whose rotation lies within the window, per keypoint."""
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_window
@@ -152,9 +161,9 @@ def _k2_samples(theta, sig, pw, lam_d, w_max) -> int:
     offs = torch.arange(-w_max, w_max + 1, device=sig.device, dtype=torch.float32)
     dy, dx = (g.reshape(-1) for g in torch.meshgrid(offs, offs, indexing="ij"))
     n = 0
-    for s0 in range(0, sig.shape[0], 1024):
-        wc = win[s0:s0 + 1024, None]
-        ct, st = torch.cos(theta[s0:s0 + 1024, None]), torch.sin(theta[s0:s0 + 1024, None])
+    for s0 in range(0, sig.shape[0], chunk):
+        wc = win[s0:s0 + chunk, None]
+        ct, st = torch.cos(theta[s0:s0 + chunk, None]), torch.sin(theta[s0:s0 + chunk, None])
         cx, cy = dx * ct - dy * st, dx * st + dy * ct
         n += int(((dx.abs() <= wc) & (dy.abs() <= wc) & (cx.abs() <= wc)
                   & (cy.abs() <= wc)).sum())
@@ -850,6 +859,268 @@ def phase_everest(dev):
           f"{float(np.median(d)) * 1000.0:.3f} (JAX record 0.034), BA {st.ba_error}")
 
 
+DENSE_PLAIN_ROWS = 65536   # dense keypoints held against K2's plain version
+DENSE_MIN_COMMON = 0.995   # fast and gather dense slot sets
+# common dense rows whose descriptors may differ by more than K2_MAX_U8_DIFF:
+# an angle one ulp apart moves a rotated sample lying on a .5 rounding tie
+# to the next pixel (1-3 of 24,566 and 2 of 71,004 rows of the scene at
+# 160^2 and 256^2 on the CPU, their angles 1-3 ulp apart)
+DENSE_MAX_TIE_ROWS = 0.0005
+STEREO_SHIFT = 24          # px the stereo target is rolled by
+STEREO_MIN_SHARE = 0.9     # valid pixels that must find STEREO_SHIFT
+PARALLEL_F = ((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0))
+
+
+def _dense_slots(fs):
+    """Slot keys (pixel * m + orientation rank) of a dense FeatureSet's rows,
+    ascending, and the rows: a row's rank is its place among the rows of its
+    pixel (pixel-major emission)."""
+    from ssrlcv_tpu_torch.config import SIFTParams
+
+    rows = torch.nonzero(fs.mask).squeeze(1)
+    loc = fs.loc[rows].to(torch.int64)
+    pix = loc[:, 1] * (1 << 20) + loc[:, 0]
+    idx = torch.arange(pix.shape[0], device=pix.device)
+    first = torch.ones_like(pix, dtype=torch.bool)
+    first[1:] = pix[1:] != pix[:-1]
+    start = torch.cummax(torch.where(first, idx, 0), dim=0).values
+    return pix * SIFTParams().max_orientations + (idx - start), rows
+
+
+def _dense_parts(px, params, dev):
+    """generate_dense_sift(fast=True)'s parts run in turn, with a CUDA event
+    after each: (FeatureSet, seconds of field, compaction, descriptors)."""
+    from ssrlcv_tpu_torch.features import dense as D
+    from ssrlcv_tpu_torch.ops import image_ops as ops
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    gx, gy = ops.pixel_gradients(ops.normalize_minmax(ops.to_float(px)))
+    theta_f, ok_f = D._dense_orientation_field(gx, gy, params, 5)
+    ev[1].record()
+    loc, theta = D._dense_compact(theta_f, ok_f, params, px.shape[1])
+    ev[2].record()
+    fs = D._dense_describe(gx, gy, loc, theta, 0, params, 6)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return fs, [ev[i].elapsed_time(ev[i + 1]) / 1e3 for i in range(3)], (gx, gy, loc, theta)
+
+
+def phase_dense(scene, dev):
+    """Phase 7: dense SIFT (fast path, then the gather oracle), Window_NxN
+    features with SAD matching, dense stereo and FAST, on image 0 of the
+    1024^2 scene on the card.  Returns ({kernel: launches}, the dense
+    records of K1 and K2)."""
+    from ssrlcv_tpu_torch.config import MatchParams, SIFTParams
+    from ssrlcv_tpu_torch.features.dense import (_interior_grid, generate_dense_sift,
+                                                 generate_window_features, sad_best_target)
+    from ssrlcv_tpu_torch.features.desc_kernel import (descriptor_histograms,
+                                                       descriptor_histograms_plain)
+    from ssrlcv_tpu_torch.features.descriptor import descriptor_epilogue
+    from ssrlcv_tpu_torch.features.fast import detect_fast
+    from ssrlcv_tpu_torch.features.orient_kernel import (orientation_histograms,
+                                                         orientation_histograms_plain)
+    from ssrlcv_tpu_torch.geometry.stereo import generate_disparity_matches
+    from ssrlcv_tpu_torch.matching.match import match_double_constrained
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.pipeline.stages import cameras_from_refimages
+
+    t_phase = time.perf_counter()
+    params = SIFTParams()
+    img0 = scene.images[0].pixels
+    px = torch.as_tensor(img0, device=dev)
+    counters = (orientation_histograms, descriptor_histograms, best_target)
+    launches = {fn.__name__: 0 for fn in counters}
+
+    def run(fn):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        for c in counters:
+            launches[c.__name__] += c.launches
+        return out, time.perf_counter() - t0, {c.__name__: c.launches for c in counters}
+
+    # 7a: the fast path, cold then warm, then its parts and K2 alone
+    fs, cold, l7a = run(lambda: generate_dense_sift(img0, params, image_id=0, device=dev))
+    n = fs.count()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    generate_dense_sift(img0, params, image_id=0, device=dev)
+    ev[1].record()
+    torch.cuda.synchronize()
+    warm = ev[0].elapsed_time(ev[1]) / 1e3
+    fs2, parts, (gx, gy, loc, theta) = _dense_parts(px, params, dev)
+    if not (torch.equal(fs2.descriptors, fs.descriptors) and torch.equal(fs2.loc, fs.loc)):
+        fail("dense SIFT: its parts run in turn differ from the entry point")
+    sig = torch.ones_like(theta)
+    lam_d = params.descriptor_contrib_width
+    k2_args = (gx, gy, loc, theta, sig, 1.0, lam_d, 6)
+    vk = descriptor_histograms(*k2_args)
+    k2_ms = cuda_ms(lambda: descriptor_histograms(*k2_args), 5, "K2 dense")
+    b2 = bound(_nbytes(gx, gy, loc, theta, sig, vk),
+               _k2_samples(theta, sig, 1.0, lam_d, 6, chunk=65536) * K2_OPS_PER_SAMPLE,
+               H100_FP32_PER_S)
+    m = min(DENSE_PLAIN_ROWS, n)
+    sub = (gx, gy, loc[:m], theta[:m], sig[:m], 1.0, lam_d, 6)
+    vp = descriptor_histograms_plain(*sub)
+    ones = torch.ones(m, dtype=torch.bool, device=dev)
+    k2_err = _u8_diff(descriptor_epilogue(vk[:m], ones), descriptor_epilogue(vp, ones))
+    k2_plain_ms = cuda_ms(lambda: descriptor_histograms_plain(*sub), 1, "K2 plain, dense")
+    del vk, vp
+    print(f"[dense] 7a fast path on {tuple(px.shape)}: {n} features (capacity {fs.capacity}); "
+          f"first call {cold:.3f} s (host clock), warm {warm:.4f} s (CUDA events); parts: field "
+          f"{parts[0]:.4f} s, compaction {parts[1]:.4f} s, descriptors (K2 + epilogue) "
+          f"{parts[2]:.4f} s; launches {l7a}")
+    print(f"[dense] K2 over {n} dense keypoints (window 6): {k2_ms:.4f} ms (device), bound "
+          f"{b2['bound_ms']:.4f} ms ({b2['bound_by']}), {k2_ms / b2['bound_ms']:.1f}x; "
+          f"{k2_ms / 1e3 / warm:.1%} of the warm call; vs plain on the first {m}: max |uint8 "
+          f"diff| {k2_err} (gate {K2_MAX_U8_DIFF}), plain {k2_plain_ms:.3f} ms for those {m}")
+    if l7a != {"orientation_histograms": 0, "descriptor_histograms": 1, "best_target": 0}:
+        fail(f"dense SIFT's fast path did not launch K2 once alone: {l7a}")
+    if k2_err > K2_MAX_U8_DIFF:
+        fail("K2 disagrees with its plain version on dense keypoints")
+    if n < 0.5 * (SIZE - 2 * params.border) ** 2:
+        fail(f"dense SIFT: {n} features")
+    k2_dense = {"keypoints": n, "ms": k2_ms, **b2, "plain_ms_first_rows": k2_plain_ms,
+                "plain_rows": m, "max_abs_err": float(k2_err), "share_of_warm_call":
+                k2_ms / 1e3 / warm}
+
+    # 7b: the gather oracle, K1 over every interior pixel, then K2
+    ref, t_gather, l7b = run(lambda: generate_dense_sift(img0, params, image_id=0, fast=False,
+                                                         device=dev))
+    ka, ra = _dense_slots(fs)
+    kb, rb = _dense_slots(ref)
+    pos = torch.clamp(torch.searchsorted(kb, ka), max=kb.shape[0] - 1)
+    hit = kb[pos] == ka
+    common = int(hit.sum())
+    share = common / max(ka.shape[0], kb.shape[0])
+    dd = (fs.descriptors[ra[hit]].int() - ref.descriptors[rb[pos[hit]]].int()).abs().amax(1)
+    desc_diff, tie_rows = int(dd.max()), int((dd > K2_MAX_U8_DIFF).sum())
+    dth = (fs.theta[ra[hit]] - ref.theta[rb[pos[hit]]]).abs()
+    dth = float(torch.minimum(dth, 2 * np.pi - dth).max())
+    # the gather path's keypoints: every interior pixel
+    grid = _interior_grid(SIZE, SIZE, params.border, device=dev)
+    gsig = torch.ones(grid.shape[0], device=dev)
+    k1_args = (gx, gy, grid, gsig, 1.0, 5, params.orientation_contrib_width)
+    hk = orientation_histograms(*k1_args)
+    k1_ms = cuda_ms(lambda: orientation_histograms(*k1_args), 5, "K1 dense")
+    b1 = bound(_nbytes(gx, gy, grid, gsig, hk),
+               _k1_samples(gsig, 1.0, params.orientation_contrib_width, 5) * K1_OPS_PER_SAMPLE,
+               H100_FP32_PER_S)
+    g = min(DENSE_PLAIN_ROWS, grid.shape[0])
+    hp = orientation_histograms_plain(gx, gy, grid[:g], gsig[:g], *k1_args[4:])
+    k1_err, k1_flip = _k1_gate(hk[:g], hp)
+    k1_plain_ms = cuda_ms(lambda: orientation_histograms_plain(gx, gy, grid[:g], gsig[:g],
+                                                               *k1_args[4:]), 1, "K1 plain, dense")
+    print(f"[dense] 7b gather oracle: {ref.count()} features in {t_gather:.3f} s (host clock), "
+          f"launches {l7b}; slots in common with 7a {common} ({share:.4%}, gate "
+          f"{DENSE_MIN_COMMON:.1%}), max |angle diff| {dth:.3e} (gate 1e-3), max |uint8 diff| "
+          f"{desc_diff}, rows beyond {K2_MAX_U8_DIFF}: {tie_rows} (gate "
+          f"{DENSE_MAX_TIE_ROWS:.2%} of the common rows)")
+    print(f"[dense] K1 over {grid.shape[0]} interior pixels (w_max 5): {k1_ms:.4f} ms (device), "
+          f"bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}), {k1_ms / b1['bound_ms']:.1f}x; vs "
+          f"plain on the first {g}: max {k1_err:.3e}, outside rtol/atol {k1_flip} (gate "
+          f"{K1_MAX_FLIP_FRACTION:.1%}), plain {k1_plain_ms:.3f} ms for those {g}")
+    if l7b["orientation_histograms"] < 1 or l7b["descriptor_histograms"] < 1:
+        fail(f"the dense gather path did not launch K1 and K2: {l7b}")
+    if share < DENSE_MIN_COMMON or dth > 1e-3 or tie_rows > DENSE_MAX_TIE_ROWS * common:
+        fail("dense SIFT's fast path disagrees with its gather oracle")
+    if k1_flip > K1_MAX_FLIP_FRACTION * g:
+        fail("K1 disagrees with its plain version on dense keypoints")
+    k1_dense = {"keypoints": grid.shape[0], "ms": k1_ms, **b1, "plain_ms_first_rows": k1_plain_ms,
+                "plain_rows": g, "max_abs_err": k1_err}
+    del fs, fs2, ref, hk, hp, gx, gy, loc, theta, ka, kb, ra, rb, pos, hit
+
+    # 7c: Window_NxN features, SAD best target, SAD epipolar matching
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf = generate_window_features(img0, window=9, device=dev)
+    torch.cuda.synchronize()
+    t_wf = time.perf_counter() - t0
+    crop = img0[:64, :64]
+    q = generate_window_features(crop, window=9, device=dev)
+    t = generate_window_features(np.roll(crop, 5, axis=1), window=9, device=dev)
+    idx, dist = sad_best_target(q.descriptors, t.descriptors, t.mask)
+    qx, tx = q.loc[:, 0], t.loc[idx.long(), 0]
+    inner = (qx > 8) & (qx < 50)
+    dx5 = float((tx[inner] - qx[inner] == 5).float().mean())
+    med = float(dist[inner].median())
+    f1 = generate_window_features(scene.images[1].pixels, window=9, device=dev)
+    qrows = torch.arange(0, wf.capacity, 2609, device=dev)[:400]
+    trows = torch.arange(0, f1.capacity, 33, device=dev)
+    sel = [(wf, qrows), (f1, trows)]
+    qw, tw = (type(f)(loc=f.loc[r], descriptors=f.descriptors[r], mask=f.mask[r], window=9)
+              for f, r in sel)
+    mp = MatchParams(epsilon=25.0, delta=5.0)
+    best_target.launches = 0
+    dm = match_double_constrained(qw, tw, cameras_from_refimages(scene.images, dev), 0, 1, mp,
+                                  metric="sad")
+    k3_sad = best_target.launches
+    cpu = lambda f: type(f)(loc=f.loc.cpu(), descriptors=f.descriptors.cpu(),  # noqa: E731
+                            mask=f.mask.cpu(), window=9)
+    dc = match_double_constrained(cpu(qw), cpu(tw), cameras_from_refimages(scene.images, "cpu"),
+                                  0, 1, mp, metric="sad")
+    agree = float((dm.target_idx.cpu() == dc.target_idx).float().mean())
+    print(f"[dense] 7c window features (9x9) at {SIZE}^2: {wf.capacity} in {t_wf:.4f} s; SAD "
+          f"best target on a 64^2 crop against it rolled 5 px: dx == 5 on {dx5:.2%} of the "
+          f"inner rows (gate > 80 %), median distance {med} (gate 0); SAD epipolar matching "
+          f"of {qw.capacity} x {tw.capacity} window features on the card: {int(dm.valid.sum())} "
+          f"valid, K3 launches {k3_sad}, idx equal to the CPU run's on {agree:.2%}")
+    if not (dx5 > 0.8 and med == 0.0):
+        fail("SAD best target did not find the 5 px shift")
+    if k3_sad != 0 or agree < 0.99 or not torch.isfinite(dm.distance).any():
+        fail("SAD epipolar matching on the card disagrees with the CPU run")
+    del wf, f1, qw, tw
+
+    # 7d: dense stereo, the scanline search and the epipolar one
+    shifted = np.roll(img0, STEREO_SHIFT, axis=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l0, l1 = generate_disparity_matches(img0, shifted, np.array(PARALLEL_F, np.float32),
+                                        max_disparity=64, window=11, device=dev)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    # the pixels whose true target window lies inside the image (the others
+    # have none in the search)
+    inside = l0[:, 0] + STEREO_SHIFT + 5 < SIZE
+    found = float(((l1[:, 0] - l0[:, 0])[inside] == STEREO_SHIFT).float().mean())
+    F = np.array(PARALLEL_F, np.float32) + np.random.default_rng(SEED).normal(
+        0, 1e-4, (3, 3)).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0, e1 = generate_disparity_matches(img0, shifted, F, max_disparity=64, window=11, device=dev)
+    torch.cuda.synchronize()
+    t_epi = time.perf_counter() - t0
+    print(f"[dense] 7d stereo at {SIZE}^2, 64 disparities, window 11: scanline {l0.shape[0]} "
+          f"matches in {t_scan:.4f} s, disparity {STEREO_SHIFT} on {found:.2%} of those whose "
+          f"target lies inside (gate "
+          f"{STEREO_MIN_SHARE:.0%}); epipolar (non-pattern F) {e0.shape[0]} matches in "
+          f"{t_epi:.4f} s (host clock)")
+    if found < STEREO_MIN_SHARE:
+        fail("the scanline stereo search did not find the shift")
+    if e0.shape[0] == 0 or not torch.isfinite(e1).all():
+        fail("the epipolar stereo search found nothing")
+
+    # 7e: FAST on the card against the CPU
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = detect_fast(img0, device=dev)
+    torch.cuda.synchronize()
+    t_fast = time.perf_counter() - t0
+    want = detect_fast(img0, device="cpu")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    print(f"[dense] 7e FAST: {int(got[2].sum())} corners in {t_fast:.4f} s (host clock), "
+          f"identical to the CPU run: {same}")
+    if not same or int(got[2].sum()) == 0:
+        fail("FAST on the card differs from the CPU run")
+    print(f"[dense] phase 7 {time.perf_counter() - t_phase:.1f} s; launches (7a + 7b) "
+          f"{launches}")
+    return launches, {"orientation_histograms": k1_dense, "descriptor_histograms": k2_dense}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -889,10 +1160,13 @@ def main():
     phase_everest(dev)
     by_phase["5"] = phase_cli_nview(scene3, counters)
     by_phase["6"] = phase_cli_pose(scene, counters)
+    by_phase["7"], dense = phase_dense(scene, dev)
+    for name, rec in dense.items():
+        recs[name]["dense"] = rec
     for fn in counters:
         name = fn.__name__
-        recs[name].update(phase="3, 3b, 5, 6: main path, brute path, command line (3 views; "
-                                "2 views with --pose)",
+        recs[name].update(phase="3, 3b, 5, 6, 7: main path, brute path, command line (3 views; "
+                                "2 views with --pose), dense SIFT and stereo",
                           launches=sum(p[name] for p in by_phase.values()),
                           launches_by_phase={k: p[name] for k, p in by_phase.items()})
     print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s after start")

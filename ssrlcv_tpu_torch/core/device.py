@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {dev}: no CUDA device is available (pass device='cpu', "
                            "or --device cpu on the command line, to run on the CPU)")
     return dev
+
+
+def as_device_tensor(x, device=None) -> torch.Tensor:
+    """``x`` (a tensor, or anything ``np.asarray`` takes) as a tensor on
+    ``device``; None means the device of a tensor ``x``, else ``cuda:0``
+    (``resolve_device``)."""
+    if device is None and isinstance(x, torch.Tensor):
+        device = x.device
+    device = resolve_device(device)
+    return (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))).to(device)

@@ -19,11 +19,10 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ssrlcv_tpu_torch.config import SIFTParams
-from ssrlcv_tpu_torch.core.device import resolve_device
+from ssrlcv_tpu_torch.core.device import as_device_tensor
 from ssrlcv_tpu_torch.core.types import FeatureSet
 from ssrlcv_tpu_torch.features import scale_space as ss
 from ssrlcv_tpu_torch.features.descriptor import fill_descriptors
@@ -76,10 +75,8 @@ def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int
     ``cuda:0``, which raises without a card).  Returns a FeatureSet of capacity ``max_keypoints``
     ordered (octave, blur bucket, detection order)."""
     params = params or SIFTParams()
-    if device is None:
-        device = pixels.device if isinstance(pixels, torch.Tensor) else resolve_device()
-    px = torch.as_tensor(np.asarray(pixels) if not isinstance(pixels, torch.Tensor) else pixels,
-                         device=device)
+    px = as_device_tensor(pixels, device)
+    device = px.device
     if px.ndim == 3:
         px = ops.to_bw(px)
     h, w = int(px.shape[0]), int(px.shape[1])

@@ -29,7 +29,7 @@ from ssrlcv_tpu_torch.config import MatchParams
 from ssrlcv_tpu_torch.core import camera_math
 from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet
 from ssrlcv_tpu_torch.matching.distance import best_target_chunked
-from ssrlcv_tpu_torch.matching.match_kernel import best_target
+from ssrlcv_tpu_torch.matching.match_kernel import best_target, epipolar_segment_mask
 
 
 class DMatches(NamedTuple):
@@ -81,12 +81,16 @@ def _threshold(idx, dist, q_mask, params: MatchParams, seed_dist,
 
 def match_double_constrained(query: FeatureSet, target: FeatureSet, cameras: Cameras,
                              query_index: int, target_index: int, params: MatchParams,
-                             seed_dist: Optional[torch.Tensor] = None,
-                             index_only: bool = False) -> DMatches:
+                             seed_dist: Optional[torch.Tensor] = None, chunk: int = 1024,
+                             backend: str = "auto", index_only: bool = False,
+                             metric: str = "l2sq") -> DMatches:
     """Earth-geometry epipolar-segment constrained matching of ``query``
-    features against ``target`` features (the constrained K3 pass).
-    index_only: the unsquared relative-seed threshold of the index-only
-    kernel family, which the N-view pair sweep uses."""
+    features against ``target`` features.  backend: 'kernel' (the
+    constrained K3 pass), 'chunked' (``best_target_chunked`` under the
+    segment gate) or 'auto' (K3 for squared L2 on 128-wide descriptors on a
+    CUDA device, chunked otherwise).  metric: 'l2sq' (SIFT) or 'sad'
+    (Window_NxN).  index_only: the unsquared relative-seed threshold of the
+    index-only kernel family, which the N-view pair sweep uses."""
     qi, ti = query_index, target_index
     P = camera_math.projection_matrix(
         cameras.cam_pos[ti], cameras.cam_rot[ti], cameras.foc[ti],
@@ -94,9 +98,15 @@ def match_double_constrained(query: FeatureSet, target: FeatureSet, cameras: Cam
     p1, p2 = camera_math.epipolar_segment_endpoints(
         query.loc, cameras.cam_pos[qi], cameras.cam_rot[qi], cameras.foc[qi],
         cameras.dpix[qi], cameras.size[qi], cameras.ecef_offset[qi], P, params.delta)
-    idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
-                            p1.contiguous(), p2.contiguous(), params.epsilon, target.mask,
-                            q_valid=query.mask)
+    if _use_kernel(query, metric, backend):
+        idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
+                                p1.contiguous(), p2.contiguous(), params.epsilon, target.mask,
+                                q_valid=query.mask)
+    else:
+        idx, dist = best_target_chunked(
+            query.descriptors, target.descriptors, target.mask,
+            mask_fn=lambda a, b: epipolar_segment_mask(a, b, target.loc, params.epsilon),
+            mask_aux=(p1, p2), chunk=chunk, metric=metric)
     return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
 
 

@@ -1,8 +1,9 @@
 """Image-space primitives for the scale-space front end.
 
 Counterpart of ``ssrlcv_tpu/ops/image_ops.py``: float conversion, min-max
-normalisation, 2x bin / bilinear upsample with symmetric borders, separable
-Gaussian blur and central-difference gradients, on (H, W) float32 maps.
+normalisation, 2x bin / bilinear upsample and rescale with symmetric
+borders, grayscale to RGB, separable Gaussian blur and central-difference
+gradients, on (H, W) float32 maps.
 """
 
 from __future__ import annotations
@@ -77,6 +78,42 @@ def upsample2x(img: torch.Tensor) -> torch.Tensor:
     )
 
 
+def to_rgb(pixels: torch.Tensor) -> torch.Tensor:
+    """(H, W) grayscale -> (H, W, 3) by channel replication; (H, W, C) as
+    given."""
+    if pixels.ndim == 3:
+        return pixels
+    return pixels[..., None].expand(*pixels.shape, 3).contiguous()
+
+
+def scale_image(img: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
+    """Bilinear rescale to ``out_shape``: output (i, j) samples the input at
+    (i*H/H', j*W/W') with symmetric-border floor/floor+1 taps, the tap
+    scheme of ``upsample2x``."""
+    h, w = img.shape
+    oh, ow = out_shape
+    dev = img.device
+    x = torch.arange(ow, device=dev, dtype=torch.int32) * (w / ow)
+    y = torch.arange(oh, device=dev, dtype=torch.int32) * (h / oh)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    xm = _symmetrize_coords(x0.to(torch.int64), w)
+    xp = _symmetrize_coords(x0.to(torch.int64) + 1, w)
+    ym = _symmetrize_coords(y0.to(torch.int64), h)
+    yp = _symmetrize_coords(y0.to(torch.int64) + 1, h)
+    fx = (x - x0)[None, :]
+    fy = (y - y0)[:, None]
+    p_mm = img[ym][:, xm]
+    p_mp = img[ym][:, xp]
+    p_pm = img[yp][:, xm]
+    p_pp = img[yp][:, xp]
+    return (
+        fx * fy * p_pp
+        + (1 - fx) * fy * p_pm
+        + fx * (1 - fy) * p_mp
+        + (1 - fx) * (1 - fy) * p_mm
+    )
+
+
 def gaussian_kernel_1d(sigma: float, pixel_width: float, base_size: int = 8) -> np.ndarray:
     """The reference blur taps: count ceil(base*sigma/pixel_width) bumped to
     odd; taps are the unnormalised continuous Gaussian sampled at integers.
@@ -104,8 +141,9 @@ def _fma_taps(pad: torch.Tensor, taps: np.ndarray, axis: int, n: int) -> torch.T
 
 
 def convolve_separable_symmetric(img: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """Separable 2-D convolution with symmetric border.  The kernel is
-    symmetric, so convolution == correlation.
+    """Separable 2-D convolution with symmetric border of (..., H, W) maps,
+    each map on its own.  The kernel is symmetric, so convolution ==
+    correlation.
 
     Written as shifted multiply-adds in the JAX package's tap order, and not
     as ``conv2d``: cuDNN would run float32 convolutions in TF32 by default
@@ -113,12 +151,12 @@ def convolve_separable_symmetric(img: torch.Tensor, taps: np.ndarray) -> torch.T
     XLA compiles the JAX loop into, so the blurred planes equal the JAX
     package's bit for bit on the CPU."""
     half = len(taps) // 2
-    h, w = img.shape
+    h, w = img.shape[-2], img.shape[-1]
     dev = img.device
     cols = _symmetrize_coords(torch.arange(-half, w + half, device=dev), w)
-    x = _fma_taps(img[:, cols], taps, 1, w)
+    x = _fma_taps(img[..., cols], taps, -1, w)
     rows = _symmetrize_coords(torch.arange(-half, h + half, device=dev), h)
-    return _fma_taps(x[rows, :], taps, 0, h)
+    return _fma_taps(x[..., rows, :], taps, -2, h)
 
 
 def pixel_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -23,6 +23,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig
@@ -281,9 +282,14 @@ def _restore(state: PipelineState, root: str, start: int):
             like[f"features{j}"] = FeatureSet.empty(cap, parent=im.id)
     if last >= STAGE_MATCHING:
         meta = ckpt.load_stage_meta(root, last) or {}
-        if "match_capacity" not in meta:
-            raise ValueError(f"{ckpt.stage_dir(root, last)}: meta.json has no match_capacity")
-        like["matches"] = MatchSet.empty(meta["match_capacity"], meta.get("match_views", 2))
+        cap = meta.get("match_capacity")
+        if cap is None:
+            # a checkpoint written before meta.json recorded the capacity:
+            # the leading dimension of the first 3-D array (matches.kp_loc)
+            with np.load(os.path.join(ckpt.stage_dir(root, last), "state.npz")) as z:
+                caps = [z[k].shape[0] for k in z.files if z[k].ndim == 3]
+            cap = caps[0] if caps else 128
+        like["matches"] = MatchSet.empty(cap, meta.get("match_views", 2))
     if last >= STAGE_TRIANGULATION:
         t = like["matches"].capacity
         like["cloud"] = PointCloud(points=torch.zeros((t, 3)), errors=torch.zeros((t,)),

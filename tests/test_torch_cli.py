@@ -293,3 +293,58 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="1.14"):
         S.run_pipeline(S.PipelineState(config=PipelineConfig(output_dir=str(tmp_path / "pb")),
                                        images=images, device="cpu"))
+
+
+def test_resume_without_match_capacity(cli_runs, monkeypatch):
+    """A stage-2 checkpoint whose meta.json lacks match_capacity (as written
+    before that key was recorded): the port's _restore reads the capacity
+    from the first 3-D array of state.npz, as the JAX package does, and
+    restores the same MatchSet as with the key; both command lines then
+    resume at stage 3 and finish, the port with the BA cloud it wrote
+    before."""
+    import json
+
+    from ssrlcv_tpu.logging import logger as jax_logger
+    from ssrlcv_tpu.pipeline import sfm as J
+    from ssrlcv_tpu_torch.io.images import load_directory
+    from ssrlcv_tpu_torch.pipeline import sfm as T
+    from ssrlcv_tpu_torch.pipeline import stages as S
+
+    root, d, seed, pose = cli_runs["three_views"]
+    before = _cloud(root, "torch", "ssrlcv-BA-final")
+    monkeypatch.setattr(J, "PipelineConfig", _small_config)
+    monkeypatch.setattr(T, "PipelineConfig", _small_config)
+    for pkg, main, extra in (("torch", T.main, ["--device", "cpu"]), ("jax", J.main, [])):
+        ck, out = str(root / f"{pkg}_ckpt"), str(root / f"{pkg}_out")
+        meta_path = os.path.join(ck, "sfm-stage2", "meta.json")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        saved = meta.pop("match_capacity")
+        if pkg == "torch":
+            restored = {}
+            for m in (dict(meta, match_capacity=saved), meta):
+                with open(meta_path, "w") as f:
+                    json.dump(m, f)
+                st = S.PipelineState(config=_small_config(), images=load_directory(d),
+                                     device="cpu")
+                S._restore(st, ck, 3)
+                restored[len(m)] = st.matches
+            with_key, probed = restored.values()
+            assert probed.capacity == saved == with_key.capacity
+            for k in ("kp_loc", "kp_parent", "num_views", "mask"):
+                assert torch.equal(getattr(probed, k), getattr(with_key, k)), k
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+        for stage in (3, 4, 5):
+            os.remove(os.path.join(ck, f"sfm-stage{stage}", "done"))
+        os.remove(os.path.join(out, "ssrlcv-BA-final.ply"))
+        start = len(_log(root, pkg))
+        jax_logger.close()
+        assert main(_argv(d, seed, out, ck, pose) + extra) == 0
+        assert "resuming at stage 3" in _log(root, pkg)[start:]
+        with np.load(os.path.join(ck, "sfm-stage3", "state.npz")) as z:
+            shapes = [z[k].shape[0] for k in z.files if z[k].ndim == 3]
+        assert shapes[0] == saved
+    np.testing.assert_array_equal(_cloud(root, "torch", "ssrlcv-BA-final"), before)
+    t, j = _cloud(root, "torch", "ssrlcv-BA-final"), _cloud(root, "jax", "ssrlcv-BA-final")
+    assert abs(len(t) - len(j)) <= 0.01 * len(j)

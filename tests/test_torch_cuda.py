@@ -569,3 +569,103 @@ def test_cuda_new_wrappers_refuse_bad_arguments(cuda_device):
         patch_row_sums(plane, k, k, k, 33)
     with pytest.raises(TypeError):
         patch_row_sums(torch.zeros((2, 256, 512), device=cuda_device), k.long(), k, k, 33)
+
+
+def _dense_grid(cuda_device, size=256, seed=7):
+    """The dense path's inputs on a size^2 image: the gradient planes of
+    the min-max-normalised image, every interior pixel (border 12) as a
+    keypoint at unit sigma, and an angle per keypoint."""
+    from ssrlcv_tpu_torch.features.dense import _interior_grid
+    from ssrlcv_tpu_torch.ops import image_ops as ops
+
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.integers(0, 256, (size, size)).astype(np.uint8)).to(cuda_device)
+    gx, gy = ops.pixel_gradients(ops.normalize_minmax(ops.to_float(img)))
+    loc = _interior_grid(size, size, 12, device=cuda_device)
+    k = loc.shape[0]
+    sigma = torch.ones(k, device=cuda_device)
+    theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, k).astype(np.float32)).to(cuda_device)
+    return gx, gy, loc, sigma, theta
+
+
+@pytest.mark.cuda
+def test_cuda_dense_grid_descriptor_matches_plain(cuda_device):
+    """K2 over every interior pixel of a 256^2 image (53,824 keypoints on a
+    stride-1 grid, window 6): uint8 descriptors within 3 of the plain
+    version's, raw histograms within rtol/atol 1e-4 on >= 99.5 % of the
+    keypoints (atan2f may move a sample lying on a bin edge), equal to
+    itself over two calls, one launch a call."""
+    from ssrlcv_tpu_torch.features.desc_kernel import (descriptor_histograms,
+                                                       descriptor_histograms_plain)
+    from ssrlcv_tpu_torch.features.descriptor import descriptor_epilogue
+
+    gx, gy, loc, sigma, theta = _dense_grid(cuda_device)
+    args = (gx, gy, loc, theta, sigma, 1.0, 6.0, 6)
+    n = descriptor_histograms.launches
+    vk = descriptor_histograms(*args)
+    assert descriptor_histograms.launches == n + 1 and vk.shape == (232 * 232, 128)
+    assert torch.equal(vk, descriptor_histograms(*args))
+    vp = descriptor_histograms_plain(*args)
+    ones = torch.ones(loc.shape[0], dtype=torch.bool, device=cuda_device)
+    d = (descriptor_epilogue(vk, ones).int() - descriptor_epilogue(vp, ones).int()).abs()
+    assert int(d.max()) <= 3
+    outside = ~torch.isclose(vk, vp, rtol=1e-4, atol=1e-4).all(dim=1)
+    assert int(outside.sum()) <= 0.005 * loc.shape[0]
+
+
+@pytest.mark.cuda
+def test_cuda_dense_grid_orientation_matches_plain(cuda_device):
+    """K1 at window 5 over the same 53,824 grid keypoints: within rtol
+    1e-4 / atol 1e-5 of the plain version on all but <= 0.5 % of them,
+    bit-identical to the restatement of its summation order on the card,
+    equal to itself over two calls."""
+    from ssrlcv_tpu_torch.features.orient_kernel import (orientation_histograms,
+                                                         orientation_histograms_lanes,
+                                                         orientation_histograms_plain)
+
+    gx, gy, loc, sigma, _ = _dense_grid(cuda_device)
+    args = (gx, gy, loc, sigma, 1.0, 5, 1.5)
+    n = orientation_histograms.launches
+    hk = orientation_histograms(*args)
+    assert orientation_histograms.launches == n + 1
+    assert torch.equal(hk, orientation_histograms(*args))
+    hp = orientation_histograms_plain(*args)
+    outside = ~torch.isclose(hk, hp, rtol=1e-4, atol=1e-5).all(dim=1)
+    assert int(outside.sum()) <= 0.005 * loc.shape[0]
+    assert torch.equal(hk, orientation_histograms_lanes(*args))
+
+
+def _dense_slots(fs):
+    """{(y, x, rank): (theta, descriptor)}: rows keyed by slot, the rank of
+    a row being its place among the rows of its pixel."""
+    m = fs.mask.cpu().numpy()
+    loc, theta, desc = (t.cpu().numpy()[m] for t in (fs.loc, fs.theta, fs.descriptors))
+    out, seen = {}, {}
+    for (x, y), t, d in zip(loc.tolist(), theta, desc):
+        r = seen.get((y, x), 0)
+        seen[(y, x)] = r + 1
+        out[(y, x, r)] = (float(t), d.astype(np.int32))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [True, False])
+def test_cuda_dense_sift_matches_cpu(cuda_device, fast):
+    """generate_dense_sift on the card against device="cpu" on one 96x96
+    image: slot sets agree on >= 99.5 %, common descriptors within 3; the
+    fast path launches K2 once and K1 never, the gather path each once."""
+    from ssrlcv_tpu_torch.features.dense import generate_dense_sift
+    from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+
+    rng = np.random.default_rng(5)
+    img = np.kron(rng.integers(0, 255, (12, 12)).astype(np.uint8), np.ones((8, 8), np.uint8))
+    before = (orientation_histograms.launches, descriptor_histograms.launches)
+    g = generate_dense_sift(img, fast=fast, device=cuda_device)
+    launched = (orientation_histograms.launches - before[0],
+                descriptor_histograms.launches - before[1])
+    assert launched == ((0, 1) if fast else (1, 1))
+    a, b = _dense_slots(g), _dense_slots(generate_dense_sift(img, fast=fast, device="cpu"))
+    common = set(a) & set(b)
+    assert len(common) >= 0.995 * max(len(a), len(b)) and len(common) > 3000
+    assert max(int(np.abs(a[k][1] - b[k][1]).max()) for k in common) <= 3
