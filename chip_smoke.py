@@ -43,7 +43,20 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
      against 7a by slot; 7c Window_NxN features, SAD best target on a
      shifted crop and SAD epipolar matching on the card against the CPU;
      7d the scanline stereo search on a shifted copy and the epipolar one;
-     7e FAST on the card against the CPU.
+     7e FAST on the card against the CPU;
+  8. pushbroom cameras: the pair as a directory whose params.csv holds
+     pushbroom rows, through seed SIFT + run_pipeline on the card in mode
+     "brute" (K1, K2, K3), its stage-3 and stage-4 clouds against the CPU
+     port's triangulation and filters on the same matches (counts equal,
+     points within the float32 bound of ROADMAP.md caveat m), stage 5's NaN
+     errors against the CPU's;
+  9. on phase 3's state: the planar filter, the octree, normals and the
+     low-density filter, reconstruct_surface (resolution 64 on the card, held
+     against the CPU port at 32) and the three octree-lattice meshers (depth
+     6) against the CPU port, the plane
+     estimate, debug clouds and a mesh written and read back, and the
+     reference features of tests/data through features_from_refdata and
+     seed_distances (K3) against the plain version.
 
 Kernel times are device times from CUDA events over back-to-back launches
 queued behind a device-side sleep (ssrlcv_tpu_torch.bench.timing).  Each
@@ -1121,6 +1134,292 @@ def phase_dense(scene, dev):
     return launches, {"orientation_histograms": k1_dense, "descriptor_histograms": k2_dense}
 
 
+def _synced(fn):
+    """(fn(), seconds): host clock around ``fn`` between two synchronisations,
+    the card's time for the step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _state_npz(ckpt, stage, cls, prefix, device):
+    """The ``prefix`` dataclass of a stage checkpoint's state.npz on
+    ``device``."""
+    import dataclasses as dc
+
+    with np.load(os.path.join(ckpt, f"sfm-stage{stage}", "state.npz")) as z:
+        return cls.from_numpy(device=device, **{f.name: z[f"{prefix}.{f.name}"]
+                                                for f in dc.fields(cls)})
+
+
+def _pushbroom_point_tol(points, vec, pnt):
+    """Per track, the bound ROADMAP.md caveat m gives: two ulps of the craft
+    position and of each unit ray, carried over the range to the point and
+    the angle between the two rays, 2 (ulp(|position|) + ulp(1) range) /
+    sin(angle).  points (T, 3), vec and pnt (T, 2, 3), numpy."""
+    ulp_pos = float(np.spacing(np.float32(np.abs(np.linalg.norm(pnt, axis=-1)).max())))
+    rng_km = np.linalg.norm(points[:, None, :] - pnt, axis=-1).sum(1)
+    sin_angle = np.linalg.norm(np.cross(vec[:, 0], vec[:, 1]), axis=-1)
+    return 2.0 * (ulp_pos + float(np.spacing(np.float32(1.0))) * rng_km) / np.maximum(sin_angle,
+                                                                                     1e-6)
+
+
+def phase_pushbroom(scene, counters, dev):
+    """Phase 8: the pair written as a directory whose params.csv holds
+    pushbroom rows (synthetic.PUSHBROOM_CAMERA, rolls 88 and 92 deg), read
+    by the loader, through seed SIFT + run_pipeline on the card with
+    MatchParams(mode="brute") and stage checkpoints; then the CPU port's
+    triangulation, filters and BA on the checkpointed stage-2 matches."""
+    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust
+    from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig, SIFTParams
+    from ssrlcv_tpu_torch.core.types import MatchSet, PointCloud
+    from ssrlcv_tpu_torch.features.sift import generate_features
+    from ssrlcv_tpu_torch.geometry import filters as F
+    from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
+    from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
+    from ssrlcv_tpu_torch.io.images import (cameras_from_refimages, load_directory,
+                                            load_image_with_params, pushbrooms_from_refimages)
+    from ssrlcv_tpu_torch.pipeline import stages as S
+    from ssrlcv_tpu_torch.synthetic import write_pushbroom_scene_dir
+
+    root = os.path.join("out", "chip_smoke_pushbroom")
+    shutil.rmtree(root, ignore_errors=True)
+    seed = write_pushbroom_scene_dir(scene, os.path.join(root, "images"))
+    images = load_directory(os.path.join(root, "images"))
+    ckpt = os.path.join(root, "ckpt")
+    cfg = PipelineConfig(output_dir=os.path.join(root, "out"), checkpoint_dir=ckpt).replace(
+        match=MatchParams(mode="brute", epsilon=25.0, delta=5.0), sift=SIFTParams())
+    for fn in counters:
+        fn.launches = 0
+    seed_px = load_image_with_params(seed, -1, no_params=True).pixels
+
+    def run():
+        seed_fs = generate_features(seed_px, cfg.sift, image_id=-1, device=dev)
+        return S.run_pipeline(S.PipelineState(config=cfg, images=images, seed_features=seed_fs,
+                                              device=dev))
+
+    st, e2e = _synced(run)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    pb = st.pushbrooms
+    print(f"[pushbroom] {[im.is_pushbroom for im in images]} pushbroom images, rolls "
+          f"{pb.roll.tolist() if pb is not None else None} on "
+          f"{pb.roll.device if pb is not None else None}; stages (s, CUDA events) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in st.stage_seconds.items())
+          + f"; e2e {e2e:.3f} s (seed SIFT + pipeline); launches {launches}")
+    if any(v == 0 for v in launches.values()) or launches["best_target"] < 2:
+        fail("a kernel of the pushbroom path was not launched")
+    if pb is None or pb.roll.device.type != "cuda":
+        fail("state.pushbrooms is not on the card")
+
+    # the CPU port on the card's stage-2 matches
+    ms2 = _state_npz(ckpt, 2, MatchSet, "matches", "cpu")
+    n_matches = ms2.count()
+    pb_cpu = pushbrooms_from_refimages(images, "cpu")
+    cams_cpu = cameras_from_refimages(images, "cpu")
+    cpu3, _ = triangulate_matches(ms2, cams_cpu, True, pushbrooms=pb_cpu)
+    jump = max(int(round(1.0 / cfg.filter.sample_fraction)), 1)
+    ms4 = F.deterministic_statistical_filter(
+        F.linear_cutoff_filter(ms2, cams_cpu, cfg.filter.linear_cutoff_km, pushbrooms=pb_cpu),
+        cams_cpu, cfg.filter.statistical_sigma, jump, pushbrooms=pb_cpu)
+    cpu4, _ = triangulate_matches(ms4, cams_cpu, True, pushbrooms=pb_cpu)
+    worst = 0.0
+    for stage, cpu, ms in ((3, cpu3, ms2), (4, cpu4, ms4)):
+        card = _state_npz(ckpt, stage, PointCloud, "cloud", "cpu")
+        m = card.mask.numpy()
+        pts = card.points.numpy()[m]   # stage 4's is the filtered cloud
+        print(f"[pushbroom] stage {stage}: {int(m.sum())} points on the card, "
+              f"{int(cpu.mask.sum())} in the CPU port's run")
+        if not np.isfinite(pts).all():
+            fail(f"pushbroom stage-{stage} cloud: non-finite points where masked")
+        if int(m.sum()) != int(cpu.mask.sum()) or not np.array_equal(m, cpu.mask.numpy()):
+            fail(f"pushbroom stage-{stage} cloud: the card's points differ in count from the CPU's")
+        bd = generate_bundles(ms, None, pushbrooms=pb_cpu)
+        diff = np.linalg.norm(pts - cpu.points.numpy()[m], axis=1)
+        tol = _pushbroom_point_tol(pts, bd.vec.numpy()[m], bd.pnt.numpy()[m])
+        worst = max(worst, float((diff / tol).max()) if len(diff) else 0.0)
+        print(f"[pushbroom] stage {stage}: max |card - CPU| {diff.max() if len(diff) else 0.0:.3e} "
+              f"km against a caveat-m bound of {tol.min() if len(tol) else 0.0:.3e} to "
+              f"{tol.max() if len(tol) else 0.0:.3e} km")
+        if (diff > tol).any():
+            fail(f"pushbroom stage-{stage} points differ from the CPU port's beyond caveat m")
+    r = bundle_adjust(ms4, cams_cpu, cfg.ba)
+    cpu_ba = (float(r.initial_error), float(r.final_error))
+    nan_card, nan_cpu = np.isnan(st.ba_error), np.isnan(cpu_ba)
+    print(f"[pushbroom] matches {n_matches}; BA on the card {st.ba_error}, on the CPU {cpu_ba} "
+          f"(the zero pinhole cameras, ROADMAP.md caveat k)")
+    if n_matches == 0:
+        fail("the pushbroom path found no matches")
+    if not np.array_equal(nan_card, nan_cpu):
+        fail("pushbroom stage 5: NaN errors on the card and the CPU differ")
+    surf = np.median(scene.surface_distance_m(pts)) if len(pts) else float("nan")
+    print(f"[pushbroom] filtered cloud median distance to the scene's sphere {surf:.1f} m "
+          f"(not gated: the pushbroom rows do not describe the renders' geometry, and the ray "
+          f"keeps only the bits of caveat m)")
+    return launches, {"e2e_s": e2e, "stage_s": dict(st.stage_seconds), "matches": n_matches,
+                      "worst_diff_over_tol": worst}
+
+
+MESH_RESOLUTION = 64       # reconstruct_surface's grid on the main path's cloud
+# the CPU reference of reconstruct_surface runs at 32: at 64 it took 34.7 s
+# on the H100 host's CPU, and the card's 64 is then gated on counts alone
+MESH_CPU_RESOLUTION = 32
+MESH_DEPTH = 6             # the octree-lattice meshers' depth
+PLANAR_CUTOFF_KM = 0.05
+# the pinhole rays' float32 sin / cos / tan and the 2-view triangulation's
+# sums round differently on the card and the CPU (by an ulp), which moves a
+# point of the main path's cloud, 400 km from its cameras, by well under a
+# metre: the planar filter's distances may differ by that much, and a track
+# whose distance straddles the cutoff between the two may be kept by one
+PLANAR_DIST_TOL_KM = 1e-3
+
+
+def _same_mesh(name, card, cpu, scale):
+    """Counts exact, vertices within 1e-6 of the coordinates' scale."""
+    if card.points.shape != cpu.points.shape or card.faces.shape != cpu.faces.shape:
+        fail(f"{name}: the card's mesh ({card.points.shape[0]} vertices, {card.faces.shape[0]} "
+             f"faces) differs from the CPU's ({cpu.points.shape[0]}, {cpu.faces.shape[0]})")
+    err = float(np.abs(card.points - cpu.points).max()) if len(card.points) else 0.0
+    if err > 1e-6 * scale or not np.array_equal(card.faces, cpu.faces):
+        fail(f"{name}: vertices differ by {err:.3e} (scale {scale:.1f}) or faces differ")
+    return err
+
+
+def _planar_distances(ms, cams):
+    """planar_cutoff_filter's point-to-plane distances and valid tracks."""
+    from ssrlcv_tpu_torch.geometry import cloud_ops as ops
+    from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
+    from ssrlcv_tpu_torch.mesh import octree as oc
+
+    pc, _ = triangulate_matches(ms, cams)
+    valid = ms.mask & pc.mask
+    tree = oc.build_octree(pc.points, valid)
+    normal = ops.estimated_plane_normal(tree, oc.compute_normals(tree, cams.cam_pos, k=10))
+    return torch.abs(oc._dot3(pc.points - ops.cloud_average(pc.points, valid), normal)), valid
+
+
+def phase_mesh(st, dev):
+    """Phase 9: on the main path's state (filtered matches, BA cloud and
+    cameras on the card): the planar filter, the octree, normals and the
+    low-density filter, the four meshers, the plane estimate, the debug
+    clouds, each against the CPU port on the same inputs; then the
+    reference features of tests/data through features_from_refdata and
+    seed_distances (K3) against image 0's features."""
+    from ssrlcv_tpu_torch.geometry import cloud_ops as ops
+    from ssrlcv_tpu_torch.geometry import filters as F
+    from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
+    from ssrlcv_tpu_torch.io import ply
+    from ssrlcv_tpu_torch.io.anatomy import read_features
+    from ssrlcv_tpu_torch.features.sift import features_from_refdata
+    from ssrlcv_tpu_torch.matching import match as M
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.mesh import meshfactory as MF
+    from ssrlcv_tpu_torch.mesh import octree as oc
+
+    def cpu(obj):
+        return type(obj)(**{k: torch.as_tensor(v) for k, v in obj.to_numpy().items()})
+
+    times = {}
+    ms, cams, cloud = st.matches, st.cameras, st.cloud
+    ms_c, cams_c, cloud_c = cpu(ms), cpu(cams), cpu(cloud)
+
+    kept, times["planar_cutoff_filter"] = _synced(
+        lambda: F.planar_cutoff_filter(ms, cams, PLANAR_CUTOFF_KM))
+    kept_c = F.planar_cutoff_filter(ms_c, cams_c, PLANAR_CUTOFF_KM)
+    d_card, valid = _planar_distances(ms, cams)
+    d_cpu, _ = _planar_distances(ms_c, cams_c)
+    d_card, valid = d_card.cpu(), valid.cpu()
+    d_err = float((d_card - d_cpu).abs()[valid].max())
+    flips = kept.mask.cpu() != kept_c.mask
+    straddle = valid & (torch.minimum(d_card, d_cpu) <= PLANAR_CUTOFF_KM) & (
+        torch.maximum(d_card, d_cpu) > PLANAR_CUTOFF_KM)
+    print(f"[mesh] planar filter ({PLANAR_CUTOFF_KM} km): {kept.count()} of {ms.count()} tracks "
+          f"kept on the card, {kept_c.count()} on the CPU; plane distances max |card - CPU| "
+          f"{d_err:.3e} km (gate {PLANAR_DIST_TOL_KM}); {int(flips.sum())} tracks kept by one "
+          f"only, all straddling the cutoff: {bool((~flips | straddle).all())}")
+    if d_err > PLANAR_DIST_TOL_KM or not bool((~flips | straddle).all()):
+        fail("planar_cutoff_filter: the card's mask differs from the CPU's beyond rounding")
+
+    tree, times["build_octree"] = _synced(lambda: oc.build_octree(cloud.points, cloud.mask))
+    tree_c = oc.build_octree(cloud_c.points, cloud_c.mask)
+    normals, times["compute_normals"] = _synced(lambda: oc.compute_normals(tree, cams.cam_pos))
+    normals_c = oc.compute_normals(tree_c, cams_c.cam_pos)
+    dense, times["remove_low_density_points"] = _synced(lambda: oc.remove_low_density_points(tree))
+    dense_c = oc.remove_low_density_points(tree_c)
+    m = tree_c.mask
+    nerr = float((normals.cpu()[m] - normals_c[m]).abs().max())
+    print(f"[mesh] octree over {int(m.sum())} points: keys, order and mask equal to the CPU's: "
+          f"{all(torch.equal(a.cpu(), b) for a, b in zip(tree[:4], tree_c[:4]))}; normals max "
+          f"|card - CPU| {nerr:.3e} (gate 1e-6); low-density filter keeps {int(dense.mask.sum())}")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(tree[:4], tree_c[:4])):
+        fail("build_octree: the card's tree differs from the CPU's")
+    if not nerr <= 1e-6 or not torch.equal(dense.mask.cpu(), dense_c.mask):
+        fail("compute_normals / remove_low_density_points differ from the CPU's")
+
+    pts = cloud.points[cloud.mask].contiguous()
+    ones = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    scale = float(pts.abs().max())
+    meshers = [("reconstruct_surface", lambda p, o, c, r: MF.reconstruct_surface(
+                   p, o, c, resolution=r), MESH_RESOLUTION, MESH_CPU_RESOLUTION)]
+    meshers += [(name, lambda p, o, c, r, f=getattr(MF, name): f(p, o, c, depth=r), MESH_DEPTH,
+                 MESH_DEPTH)
+                for name in ("marching_cubes_octree", "adaptive_marching_cubes", "jax_meshing")]
+    meshes = {}
+    for name, run, full, size in meshers:
+        card, times[name] = _synced(lambda: run(pts, ones, cams.cam_pos, full))
+        if not (len(card.faces) > 0 and np.isfinite(card.points).all()):
+            fail(f"{name}: no faces or non-finite vertices on the card")
+        held = card if size == full else run(pts, ones, cams.cam_pos, size)
+        ref, cpu_s = _synced(lambda: run(pts.cpu(), ones.cpu(), cams_c.cam_pos, size))
+        err = _same_mesh(name, held, ref, scale)
+        meshes[name] = card
+        print(f"[mesh] {name} ({'resolution' if name == 'reconstruct_surface' else 'depth'} "
+              f"{full}): {len(card.points)} vertices, {len(card.faces)} faces, {times[name]:.4f} s "
+              f"on the card; at {size} the card's mesh ({len(held.faces)} faces) equals the "
+              f"CPU's ({cpu_s:.2f} s): counts equal, vertices within {err:.3e}")
+
+    out = os.path.join("out", "chip_smoke_mesh")
+    shutil.rmtree(out, ignore_errors=True)
+    plane, times["visualize_plane_estimation"] = _synced(
+        lambda: ops.visualize_plane_estimation(cloud, cams, os.path.join(out, "plane.ply")))
+    bd = generate_bundles(ms, cams)
+    written = {
+        "plane": (plane, 50 * 50),
+        "debug": (ops.save_debug_cloud(os.path.join(out, "debug"), cloud, cams, bd),
+                  int(cloud.mask.sum()) + cams.num_cameras + 2 * ms.count()),
+        "linear_error": (ops.save_linear_error_cloud(os.path.join(out, "error"), cloud),
+                         int(cloud.mask.sum())),
+        "view_number": (ops.save_view_number_cloud(os.path.join(out, "views"), cloud, ms),
+                        int(cloud.mask.sum())),
+        "mesh": (MF.generate_mesh(meshes["jax_meshing"], out, "main", MESH_DEPTH),
+                 len(meshes["jax_meshing"].points)),
+    }
+    for name, (path, n) in written.items():
+        back = ply.read_ply(path)
+        if len(back["points"]) != n or not np.isfinite(back["points"]).all():
+            fail(f"{name}: {path} read back {len(back['points'])} points, not {n}")
+        if name != "mesh" and name != "plane" and back["colors"] is None:
+            fail(f"{name}: {path} has no colours")
+    print(f"[mesh] written and read back: {', '.join(written)}")
+
+    ref = read_features(os.path.join("tests", "data", "anatomy_seed_features.txt"))
+    best_target.launches = 0
+    (ref_fs, dist), times["features_from_refdata + seed_distances"] = _synced(
+        lambda: (lambda fs: (fs, M.seed_distances(st.features[0], fs)))(
+            features_from_refdata(ref, device=dev)))
+    k3 = best_target.launches
+    want = M.seed_distances(cpu(st.features[0]), cpu(ref_fs))
+    same = torch.equal(dist.cpu(), want)
+    print(f"[mesh] reference features: {ref_fs.count()} (capacity {ref_fs.capacity}) against "
+          f"image 0's {st.features[0].count()}: K3 launched {k3}, distances bit-identical to the "
+          f"plain version: {same}")
+    if k3 == 0 or not same:
+        fail("seed_distances on the reference features: K3 not launched or not the plain result")
+    print("[mesh] card seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    return {"best_target": k3}, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1163,12 +1462,16 @@ def main():
     by_phase["7"], dense = phase_dense(scene, dev)
     for name, rec in dense.items():
         recs[name]["dense"] = rec
+    by_phase["8"], _ = phase_pushbroom(scene, counters, dev)
+    by_phase["9"], _ = phase_mesh(main_state, dev)
     for fn in counters:
         name = fn.__name__
-        recs[name].update(phase="3, 3b, 5, 6, 7: main path, brute path, command line (3 views; "
-                                "2 views with --pose), dense SIFT and stereo",
-                          launches=sum(p[name] for p in by_phase.values()),
-                          launches_by_phase={k: p[name] for k, p in by_phase.items()})
+        recs[name].update(phase="3, 3b, 5, 6, 7, 8, 9: main path, brute path, command line (3 "
+                                "views; 2 views with --pose), dense SIFT and stereo, pushbroom "
+                                "cameras, mesh and reference features",
+                          launches=sum(p.get(name, 0) for p in by_phase.values()),
+                          launches_by_phase={k: p[name] for k, p in by_phase.items()
+                                             if name in p})
     print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s after start")
 
     if any(m.split(".")[0] in ("jax", "ssrlcv_tpu") for m in sys.modules):

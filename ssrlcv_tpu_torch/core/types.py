@@ -68,6 +68,27 @@ class Cameras(_TensorStruct):
 
 
 @dataclasses.dataclass
+class PushbroomCameras(_TensorStruct):
+    """Batched pushbroom (scan) cameras; leading axis = image."""
+
+    start_pos: torch.Tensor          # (N, 3) float32
+    end_pos: torch.Tensor            # (N, 3) float32
+    projection_center: torch.Tensor  # (N, 2) float32
+    axis_radius: torch.Tensor        # (N,) float32, km
+    roll: torch.Tensor               # (N,) float32, degrees
+    altitude: torch.Tensor           # (N,) float32, km
+    foc: torch.Tensor                # (N,) float32
+    fov: torch.Tensor                # (N,) float32, radians
+    gsd: torch.Tensor                # (N,) float32, km
+    dpix: torch.Tensor               # (N, 2) float32
+    size: torch.Tensor               # (N, 2) int32 (width, height)
+
+    @property
+    def num_cameras(self) -> int:
+        return self.roll.shape[0]
+
+
+@dataclasses.dataclass
 class FeatureSet(_TensorStruct):
     """Fixed-capacity SIFT features for one image."""
 

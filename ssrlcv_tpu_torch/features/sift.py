@@ -123,3 +123,22 @@ def generate_features_many(pixel_list, params: Optional[SIFTParams] = None,
                          f"{len(ids)} image_ids")
     return [generate_features(p, params, image_id=i, device=device)
             for p, i in zip(pixel_list, ids)]
+
+
+def features_from_refdata(feat_dict: dict, capacity: Optional[int] = None, parent: int = -1,
+                          device=None) -> FeatureSet:
+    """A FeatureSet on ``device`` (None: ``cuda:0``) from a feature dump
+    ({'loc', 'sigma', 'theta', 'values', 'parent'} arrays, as
+    ``io.refdata`` and ``io.anatomy.read_features`` return): the rows at
+    the front, the capacity ``capacity`` or the count rounded up to 128."""
+    from ssrlcv_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+    n = len(feat_dict["loc"])
+    fs = FeatureSet.empty(capacity or ((n + 127) // 128) * 128, parent=parent, device=dev)
+    for name, key in (("loc", "loc"), ("sigma", "sigma"), ("theta", "theta"),
+                      ("descriptors", "values"), ("parent", "parent")):
+        dst = getattr(fs, name)
+        dst[:n] = torch.as_tensor(feat_dict[key], device=dev).to(dst.dtype)
+    fs.mask[:n] = True
+    return fs

@@ -2,8 +2,8 @@
 
 Counterpart of ``ssrlcv_tpu/geometry/filters.py``: a filter is a function
 MatchSet -> MatchSet that only clears mask bits, so order is preserved;
-``compact_matchset`` is the one physical compaction.  ``planar_cutoff_filter``
-needs the octree (mesh) module and is not ported yet.
+``compact_matchset`` is the one physical compaction.  Every filter takes
+``pushbrooms`` and then triangulates pushbroom rays.
 """
 
 from __future__ import annotations
@@ -15,18 +15,19 @@ from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
 from ssrlcv_tpu_torch.geometry.triangulation import n_view_triangulate, two_view_triangulate
 
 
-def _cloud(matches: MatchSet, cameras: Cameras, two_view: bool, reference_error_mode: bool):
-    bd = generate_bundles(matches, cameras)
+def _cloud(matches: MatchSet, cameras: Cameras, two_view: bool, reference_error_mode: bool,
+           pushbrooms=None):
+    bd = generate_bundles(matches, cameras, pushbrooms=pushbrooms)
     if two_view:
         return two_view_triangulate(bd)[0]
     return n_view_triangulate(bd, reference_error_mode=reference_error_mode)[0]
 
 
 def linear_cutoff_filter(matches: MatchSet, cameras: Cameras, cutoff: float,
-                         two_view: bool = True) -> MatchSet:
+                         two_view: bool = True, pushbrooms=None) -> MatchSet:
     """Drop tracks whose error (the squared gap in km^2 for 2 views)
     exceeds ``cutoff``."""
-    pc = _cloud(matches, cameras, two_view, reference_error_mode=False)
+    pc = _cloud(matches, cameras, two_view, reference_error_mode=False, pushbrooms=pushbrooms)
     return matches.replace(mask=matches.mask & (pc.errors <= cutoff) & pc.mask)
 
 
@@ -41,12 +42,13 @@ def _sigma_cutoff(matches: MatchSet, errors: torch.Tensor, valid: torch.Tensor, 
 
 
 def deterministic_statistical_filter(matches: MatchSet, cameras: Cameras, sigma: float,
-                                     sample_jump: int, two_view: bool = True) -> MatchSet:
+                                     sample_jump: int, two_view: bool = True,
+                                     pushbrooms=None) -> MatchSet:
     """Sample every ``sample_jump``-th valid track's error (in compacted
     order), take the sample variance, and drop tracks with error > sigma *
     stddev.  N-view errors are the reference's (last view's squared distance
     / numLines), so the cutoff reproduces its filtered sets."""
-    pc = _cloud(matches, cameras, two_view, reference_error_mode=True)
+    pc = _cloud(matches, cameras, two_view, reference_error_mode=True, pushbrooms=pushbrooms)
     valid = matches.mask & pc.mask
     order = torch.cumsum(valid.to(torch.int32), dim=0) - 1
     n_valid = torch.sum(valid.to(torch.int32))
@@ -57,10 +59,11 @@ def deterministic_statistical_filter(matches: MatchSet, cameras: Cameras, sigma:
 
 def nondeterministic_statistical_filter(matches: MatchSet, cameras: Cameras,
                                         generator: torch.Generator, sigma: float,
-                                        sample_count: int, two_view: bool = True) -> MatchSet:
+                                        sample_count: int, two_view: bool = True,
+                                        pushbrooms=None) -> MatchSet:
     """The same cutoff over ``sample_count`` tracks drawn uniformly, with
     replacement, from the valid tracks by ``generator``."""
-    pc = _cloud(matches, cameras, two_view, reference_error_mode=True)
+    pc = _cloud(matches, cameras, two_view, reference_error_mode=True, pushbrooms=pushbrooms)
     valid = matches.mask & pc.mask
     probs = valid.to(torch.float32)
     if not bool(probs.any()):
@@ -68,6 +71,23 @@ def nondeterministic_statistical_filter(matches: MatchSet, cameras: Cameras,
     idx = torch.multinomial(probs, sample_count, replacement=True, generator=generator)
     counts = torch.bincount(idx, minlength=matches.capacity).to(pc.errors.dtype)
     return _sigma_cutoff(matches, pc.errors, valid, counts, sigma)
+
+
+def planar_cutoff_filter(matches: MatchSet, cameras: Cameras, cutoff: float,
+                         two_view: bool = True, k: int = 10, pushbrooms=None) -> MatchSet:
+    """Drop tracks whose point lies further than ``cutoff`` from the scene's
+    estimated plane: the average of the octree's camera-facing neighbourhood
+    normals, through the cloud's centroid."""
+    from ssrlcv_tpu_torch.geometry.cloud_ops import cloud_average, estimated_plane_normal
+    from ssrlcv_tpu_torch.mesh import octree as oc
+    from ssrlcv_tpu_torch.mesh.octree import _dot3
+
+    pc = _cloud(matches, cameras, two_view, reference_error_mode=False, pushbrooms=pushbrooms)
+    valid = matches.mask & pc.mask
+    tree = oc.build_octree(pc.points, valid)
+    normal = estimated_plane_normal(tree, oc.compute_normals(tree, cameras.cam_pos, k=k))
+    dist = torch.abs(_dot3(pc.points - cloud_average(pc.points, valid), normal))
+    return matches.replace(mask=valid & (dist <= cutoff))
 
 
 def reduce_bundle_set(matches: MatchSet, fraction: float) -> MatchSet:

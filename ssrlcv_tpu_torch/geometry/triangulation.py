@@ -124,11 +124,12 @@ def triangulate(bundles: Bundles, two_view: bool, cutoff: float = math.inf):
     return n_view_triangulate(bundles)
 
 
-def triangulate_matches(matches, cameras, two_view: bool = True, cutoff: float = math.inf):
-    """Bundle generation + triangulation."""
+def triangulate_matches(matches, cameras, two_view: bool = True, cutoff: float = math.inf,
+                        pushbrooms=None):
+    """Bundle generation (pushbroom rays with ``pushbrooms``) + triangulation."""
     from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
 
-    return triangulate(generate_bundles(matches, cameras), two_view, cutoff)
+    return triangulate(generate_bundles(matches, cameras, pushbrooms=pushbrooms), two_view, cutoff)
 
 
 def linear_error_objective(bundles: Bundles) -> torch.Tensor:

@@ -24,7 +24,7 @@ import numpy as np
 from ssrlcv_tpu_torch.io.refdata import RefImage
 from ssrlcv_tpu_torch.logging import logger
 from ssrlcv_tpu_torch.core.device import resolve_device
-from ssrlcv_tpu_torch.core.types import Cameras
+from ssrlcv_tpu_torch.core.types import Cameras, PushbroomCameras
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".tif", ".tiff")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -284,3 +284,27 @@ def cameras_from_refimages(images: Iterable[RefImage], device=None) -> Cameras:
         ecef_offset=np.stack([im.ecef_offset for im in ims]).astype(np.float32),
         timestamp=np.array([im.timestamp for im in ims], np.int64),
     )
+
+
+def pushbrooms_from_refimages(images: Iterable[RefImage],
+                              device=None) -> Optional[PushbroomCameras]:
+    """Stack pushbroom RefImages into batched PushbroomCameras on ``device``
+    (None: ``cuda:0``).  None unless image 0 is pushbroom: the dispatch is on
+    image 0 alone, so a set whose later images alone are pushbroom runs the
+    pinhole path."""
+    ims = list(images)
+    if not ims or not ims[0].is_pushbroom:
+        return None
+    n = len(ims)
+
+    def get(key, shape=()):
+        return np.array([np.asarray(im.pushbroom[key], np.float32) for im in ims],
+                        np.float32).reshape((n,) + shape)
+
+    return PushbroomCameras.from_numpy(
+        device=resolve_device(device),
+        start_pos=np.zeros((n, 3), np.float32), end_pos=np.zeros((n, 3), np.float32),
+        projection_center=get("projection_center", (2,)), axis_radius=get("axis_radius"),
+        roll=get("roll"), altitude=get("altitude"), foc=get("foc"), fov=get("fov"),
+        gsd=get("gsd"), dpix=get("dpix", (2,)),
+        size=np.array([[im.size[0], im.size[1]] for im in ims], np.int32))

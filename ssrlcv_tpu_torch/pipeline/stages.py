@@ -11,8 +11,10 @@ Each stage is a function over a ``PipelineState``; with two images the
 unless the state or the call names another), writes the
 initial, filtered and bundle-adjusted clouds as PLY files under
 ``config.output_dir`` and, with ``config.checkpoint_dir``, checkpoints every
-stage and resumes at the first stage without a ``done`` marker.  Pinhole
-cameras only; multi-device meshes are not ported.
+stage and resumes at the first stage without a ``done`` marker.  When image 0
+is pushbroom, stage 0 also stacks the pushbroom cameras and stages 3-4
+triangulate pushbroom rays; stage 5 and a resume ignore them, as in the JAX
+package (ROADMAP.md caveats k, l).  Multi-device meshes are not ported.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig
 from ssrlcv_tpu_torch.io import ply
 from ssrlcv_tpu_torch.logging import logger
 from ssrlcv_tpu_torch.core.device import resolve_device
-from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet, PointCloud
+from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet, PointCloud, PushbroomCameras
 from ssrlcv_tpu_torch.io import checkpoint as ckpt
-from ssrlcv_tpu_torch.io.images import cameras_from_refimages  # noqa: F401  (re-exported)
+from ssrlcv_tpu_torch.io.images import (cameras_from_refimages,  # noqa: F401  (re-exported)
+                                        pushbrooms_from_refimages)
 
 STAGE_FEATURES = 0
 STAGE_POSE = 1
@@ -55,6 +58,8 @@ class PipelineState:
     matches: Optional[MatchSet] = None
     cloud: Optional[PointCloud] = None
     ba_error: Optional[tuple] = None               # (initial, final)
+    # PushbroomCameras when image 0 is pushbroom (set by stage 0 only)
+    pushbrooms: Optional[PushbroomCameras] = None
     stage_seconds: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -70,12 +75,12 @@ def _pose_runs(state: PipelineState) -> bool:
 
 
 def do_feature_generation(state: PipelineState) -> PipelineState:
-    """Stage 0: cameras, then SIFT per image."""
+    """Stage 0: cameras (and the pushbroom cameras when image 0 is
+    pushbroom), then SIFT per image."""
     from ssrlcv_tpu_torch.features.sift import generate_features_many
 
-    if any(im.is_pushbroom for im in state.images):
-        raise NotImplementedError("pushbroom cameras are not ported (ROADMAP.md 1.14)")
     state.cameras = cameras_from_refimages(state.images, state.device)
+    state.pushbrooms = pushbrooms_from_refimages(state.images, state.device)
     state.features = generate_features_many(
         [im.pixels for im in state.images], state.config.sift,
         image_ids=[im.id for im in state.images], device=state.device)
@@ -140,7 +145,8 @@ def do_triangulation(state: PipelineState) -> PipelineState:
     """Stage 3: bundles + 2-view or N-view triangulation."""
     from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
 
-    pc, err = triangulate_matches(state.matches, state.cameras, _two_view(state))
+    pc, err = triangulate_matches(state.matches, state.cameras, _two_view(state),
+                                  pushbrooms=state.pushbrooms)
     state.cloud = pc
     logger.info(f"initial cloud: {int(pc.mask.sum())} points, error {float(err):.6f}")
     _write_cloud(state, "ssrlcv-initial")
@@ -157,12 +163,13 @@ def do_filtering(state: PipelineState) -> PipelineState:
     two_view = _two_view(state)
     ms = state.matches
     if two_view:
-        ms = F.linear_cutoff_filter(ms, state.cameras, cfg.linear_cutoff_km)
+        ms = F.linear_cutoff_filter(ms, state.cameras, cfg.linear_cutoff_km,
+                                    pushbrooms=state.pushbrooms)
     jump = max(int(round(1.0 / cfg.sample_fraction)), 1)
     ms = F.deterministic_statistical_filter(ms, state.cameras, cfg.statistical_sigma, jump,
-                                            two_view=two_view)
+                                            two_view=two_view, pushbrooms=state.pushbrooms)
     state.matches = ms
-    pc, err = triangulate_matches(ms, state.cameras, two_view)
+    pc, err = triangulate_matches(ms, state.cameras, two_view, pushbrooms=state.pushbrooms)
     state.cloud = pc
     logger.info(f"filtered cloud: {int(pc.mask.sum())} points, error {float(err):.6f}")
     _write_cloud(state, "ssrlcv-filtered")
@@ -170,7 +177,10 @@ def do_filtering(state: PipelineState) -> PipelineState:
 
 
 def do_bundle_adjust(state: PipelineState) -> PipelineState:
-    """Stage 5: 2-view Levenberg-Marquardt, or N-view, bundle adjustment."""
+    """Stage 5: 2-view Levenberg-Marquardt, or N-view, bundle adjustment of
+    the pinhole cameras (pushbroom cameras are not adjusted: with pushbroom
+    images the pinhole fields are zero and the errors NaN, as in the JAX
+    package)."""
     if _two_view(state):
         from ssrlcv_tpu_torch.ba.two_view import bundle_adjust
 
@@ -273,7 +283,9 @@ def _checkpoint(state: PipelineState, root: str, stage: int):
 
 def _restore(state: PipelineState, root: str, start: int):
     """Rebuild the state from the last finished stage's checkpoint, on the
-    state's device."""
+    state's device.  ``state.pushbrooms`` is not rebuilt (only stage 0 sets
+    it), so a run resumed at stage >= 1 triangulates with pinhole bundles,
+    as in the JAX package (ROADMAP.md caveat l)."""
     last, dev = start - 1, state.device
     like = {"cameras": cameras_from_refimages(state.images, "cpu")}
     if last <= STAGE_POSE:

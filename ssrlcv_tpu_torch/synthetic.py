@@ -234,3 +234,27 @@ def write_scene_dir(scene: SyntheticScene, path: str) -> str:
     seed_path = os.path.join(path, "seed", "seed.png")
     write_image(seed_path, scene.seed_image.pixels)
     return seed_path
+
+
+# a HiRISE-like scan camera over Mars (the camera of tests/test_pushbroom.py)
+PUSHBROOM_CAMERA = {"lat": 18.5, "lon": 226.0, "axis_radius_km": 3396.19, "altitude_km": 300.0,
+                    "foc": 0.012, "gsd_m": 0.25, "fov_deg": 1.14}
+PUSHBROOM_ROLLS = (88.0, 92.0)
+
+
+def write_pushbroom_scene_dir(scene: SyntheticScene, path: str,
+                              rolls=PUSHBROOM_ROLLS) -> str:
+    """Write the views and the seed image as ``write_scene_dir`` does, but
+    with a params.csv of pushbroom rows (``PUSHBROOM_CAMERA``, one roll per
+    view; the loader takes the size from the image).  The pixels are the
+    pinhole renders: the rows give the pushbroom path something to match,
+    not a geometry the images obey.  Returns the seed image's path."""
+    seed_path = write_scene_dir(scene, path)
+    c = PUSHBROOM_CAMERA
+    rows = [",".join(f"{v}" for v in (f"image{im.id}.png", "pushbroom", c["lat"], c["lon"],
+                                       c["axis_radius_km"], roll, c["altitude_km"], c["foc"],
+                                       c["gsd_m"], c["fov_deg"]))
+            for im, roll in zip(scene.images, rolls)]
+    with open(os.path.join(path, "params.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return seed_path

@@ -271,10 +271,13 @@ def test_cli_matches_jax(cli_runs, scene3, case, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """--mesh and pushbroom cameras raise NotImplementedError naming their
-    ROADMAP.md items; --device cuda without a card raises; a directory with
-    one image returns 1."""
-    from ssrlcv_tpu.config import PipelineConfig
+    """--mesh raises NotImplementedError naming its ROADMAP.md item;
+    --device cuda without a card raises; a directory with one image returns
+    1.  Pushbroom cameras are dispatched on image 0 alone, as in the JAX
+    package: a set whose image 1 alone is pushbroom runs the pinhole path,
+    to the same cloud as without the flag."""
+    from ssrlcv_tpu.io.images import pushbrooms_from_refimages as jax_stack
+    from ssrlcv_tpu_torch.config import PipelineConfig, SIFTParams
     from ssrlcv_tpu_torch.pipeline import sfm as T
     from ssrlcv_tpu_torch.pipeline import stages as S
     from ssrlcv_tpu_torch.synthetic import make_scene, write_scene_dir
@@ -288,11 +291,18 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.main(["-d", d])
     assert T.main(["-d", d, "-o", str(tmp_path / "out"), "--device", "cpu"]) == 1
-    images = [dataclasses.replace(im) for im in scene.images]
-    images[1].is_pushbroom = True
-    with pytest.raises(NotImplementedError, match="1.14"):
-        S.run_pipeline(S.PipelineState(config=PipelineConfig(output_dir=str(tmp_path / "pb")),
-                                       images=images, device="cpu"))
+    clouds = []
+    for flag in (True, False):
+        images = [dataclasses.replace(im) for im in scene.images]
+        images[1].is_pushbroom = flag
+        cfg = PipelineConfig(output_dir=str(tmp_path / f"pb{flag}")).replace(
+            sift=SIFTParams(max_keypoints=512))
+        st = S.run_pipeline(S.PipelineState(config=cfg, images=images, device="cpu"))
+        assert st.pushbrooms is None
+        assert flag is False or jax_stack(images) is None
+        clouds.append(st.cloud)
+    assert torch.equal(clouds[0].mask, clouds[1].mask)
+    assert torch.equal(clouds[0].points, clouds[1].points)
 
 
 def test_resume_without_match_capacity(cli_runs, monkeypatch):

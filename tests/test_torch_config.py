@@ -1,10 +1,11 @@
 """The port's own configuration, PLY and fixture modules against the JAX
 package's, and its entry points' default device, on the CPU.
 
-``ssrlcv_tpu_torch`` keeps copies of ``ssrlcv_tpu.config``, the point-cloud
-part of ``ssrlcv_tpu.io.ply`` and ``ssrlcv_tpu.io.refdata``, so that it
-imports nothing of the JAX package; these tests hold the copies to the
-originals.  Without a device named, the entry points take ``cuda:0`` and
+``ssrlcv_tpu_torch`` keeps copies of ``ssrlcv_tpu.config``, ``io.ply``,
+``io.refdata``, ``io.csvio``, ``io.anatomy``, ``mesh.mc_tables`` and
+``mesh.hierarchy``, so that it imports nothing of the JAX package; these
+tests hold the copies to the originals (the PLY writers' files in
+tests/test_torch_cloud_io.py).  Without a device named, the entry points take ``cuda:0`` and
 raise where there is no card; the tests decide that with a monkeypatched
 ``torch.cuda.is_available``, inside each test.
 """
@@ -55,6 +56,35 @@ def test_ply_copy_round_trips_with_jax(tmp_path, binary):
         np.testing.assert_array_equal(ref, pts)
     empty = T.write_ply(str(tmp_path / "empty"), np.zeros((0, 3)), binary=binary)
     assert T.read_ply(empty)["points"].shape == J.read_ply(empty)["points"].shape == (0, 3)
+
+
+# modules the port copies from the JAX package (numpy only), and the
+# functions whose code differs on purpose
+_COPIES = {"io.csvio": (), "io.anatomy": (), "mesh.mc_tables": (),
+           "mesh.hierarchy": ("knn_neighborhood",)}
+
+
+@pytest.mark.parametrize("name", sorted(_COPIES))
+def test_numpy_module_copies_match_jax(name):
+    """Every function and class of each copied module has the JAX module's
+    code (the search of hierarchy.knn_neighborhood, in torch, aside), and
+    every module-level array equals the original's."""
+    import importlib
+    import inspect
+
+    jm = importlib.import_module(f"ssrlcv_tpu.{name}")
+    tm = importlib.import_module(f"ssrlcv_tpu_torch.{name}")
+    for attr, obj in vars(jm).items():
+        if attr.startswith("__") or inspect.ismodule(obj):
+            continue
+        assert hasattr(tm, attr), attr
+        if (inspect.isfunction(obj) or inspect.isclass(obj)) and obj.__module__ == jm.__name__:
+            if attr not in _COPIES[name]:
+                assert inspect.getsource(getattr(tm, attr)) == inspect.getsource(obj), attr
+        elif isinstance(obj, np.ndarray):
+            got = getattr(tm, attr)
+            assert got.dtype == obj.dtype, attr
+            np.testing.assert_array_equal(got, obj, err_msg=attr)
 
 
 def _uty(path, name, array):

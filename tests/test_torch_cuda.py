@@ -669,3 +669,108 @@ def test_cuda_dense_sift_matches_cpu(cuda_device, fast):
     common = set(a) & set(b)
     assert len(common) >= 0.995 * max(len(a), len(b)) and len(common) > 3000
     assert max(int(np.abs(a[k][1] - b[k][1]).max()) for k in common) <= 3
+
+
+def _pushbroom_case(seed=31, n=2000):
+    """A 2-view match set over a 2048x1024 scan at rolls 88 and 92 deg (the
+    HiRISE-like camera of tests/test_pushbroom.py), as port tensors."""
+    from ssrlcv_tpu_torch.core.types import MatchSet, PushbroomCameras
+
+    rng = np.random.default_rng(seed)
+    loc = rng.uniform(0, [2048, 1024], (n, 2, 2)).astype(np.float32)
+    fov = 1.14 * np.pi / 180.0
+    dpix = 0.012 * np.tan(fov / 2.0) / 1024.0
+    mask = np.ones(n, bool)
+    mask[-7:] = False
+    ms = MatchSet.from_numpy(kp_loc=loc, kp_parent=np.tile([0, 1], (n, 1)).astype(np.int32),
+                             num_views=np.full(n, 2, np.int32), mask=mask)
+    f32 = lambda v: np.full(2, v, np.float32)  # noqa: E731
+    pb = PushbroomCameras.from_numpy(
+        start_pos=np.zeros((2, 3), np.float32), end_pos=np.zeros((2, 3), np.float32),
+        projection_center=np.zeros((2, 2), np.float32), axis_radius=f32(3396.19),
+        roll=np.array([88.0, 92.0], np.float32), altitude=f32(300.0), foc=f32(0.012),
+        fov=f32(fov), gsd=f32(0.25e-3), dpix=np.tile([dpix, 0.0], (2, 1)).astype(np.float32),
+        size=np.tile([2048, 1024], (2, 1)).astype(np.int32))
+    return ms, pb
+
+
+def _to(obj, dev):
+    return type(obj)(**{k: torch.as_tensor(v, device=dev) for k, v in obj.to_numpy().items()})
+
+
+@pytest.mark.cuda
+def test_cuda_pushbroom_bundles_match_cpu(cuda_device):
+    """Pushbroom rays, their 2-view triangulation and the two filters on
+    the card equal the CPU port's bit for bit (the transcendentals are
+    float64 rounded once, every other step a separately rounded float32
+    operation), twice."""
+    from ssrlcv_tpu_torch.geometry import filters as F
+    from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
+    from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
+
+    ms, pb = _pushbroom_case()
+    ref = generate_bundles(ms, None, pushbrooms=pb)
+    ref_pc, _ = triangulate_matches(ms, None, pushbrooms=pb)
+    ref_lin = F.linear_cutoff_filter(ms, None, 100.0, pushbrooms=pb)
+    ref_stat = F.deterministic_statistical_filter(ref_lin, None, 3.0, 10, pushbrooms=pb)
+    gms, gpb = _to(ms, cuda_device), _to(pb, cuda_device)
+    for _ in range(2):
+        bd = generate_bundles(gms, None, pushbrooms=gpb)
+        assert torch.equal(bd.vec.cpu(), ref.vec) and torch.equal(bd.pnt.cpu(), ref.pnt)
+        pc, _ = triangulate_matches(gms, None, pushbrooms=gpb)
+        assert torch.equal(pc.mask.cpu(), ref_pc.mask)
+        assert torch.equal(pc.points.cpu(), ref_pc.points)
+        lin = F.linear_cutoff_filter(gms, None, 100.0, pushbrooms=gpb)
+        stat = F.deterministic_statistical_filter(lin, None, 3.0, 10, pushbrooms=gpb)
+        assert torch.equal(lin.mask.cpu(), ref_lin.mask)
+        assert torch.equal(stat.mask.cpu(), ref_stat.mask)
+
+
+@pytest.mark.cuda
+def test_cuda_octree_normals_match_cpu(cuda_device):
+    """The Morton octree, windowed and exact kNN and the low-density filter
+    on the card equal the CPU port's exactly; normals within 1e-6 (each
+    device's float64 eigensolver, rounded once); twice."""
+    from ssrlcv_tpu_torch.mesh import octree as oc
+
+    rng = np.random.default_rng(37)
+    xy = rng.uniform(-50, 50, (3000, 2))
+    pts = np.column_stack([xy, 5 * np.sin(xy[:, 0] / 10) + rng.normal(0, 0.2, 3000)])
+    pts = pts.astype(np.float32)
+    mask = rng.uniform(size=3000) > 0.05
+    cams = np.array([[0.0, 0.0, 400.0], [30.0, 0.0, 400.0]], np.float32)
+    ct = oc.build_octree(pts, mask, device="cpu")
+    want = (oc.knn(ct, k=8), oc.knn_exact(ct.points, ct.mask, k=6),
+            oc.compute_normals(ct, cams), oc.remove_low_density_points(ct).mask)
+    for _ in range(2):
+        gt = oc.build_octree(pts, mask, device=cuda_device)
+        for a, b in zip(gt[:4], ct[:4]):
+            assert torch.equal(a.cpu(), b)
+        (gi, gd), (ei, ed) = oc.knn(gt, k=8), oc.knn_exact(gt.points, gt.mask, k=6)
+        assert torch.equal(gi.cpu(), want[0][0]) and torch.equal(gd.cpu(), want[0][1])
+        assert torch.equal(ei.cpu(), want[1][0]) and torch.equal(ed.cpu(), want[1][1])
+        n = oc.compute_normals(gt, cams).cpu()
+        assert float((n - want[2]).abs().max()) <= 1e-6
+        assert torch.equal(oc.remove_low_density_points(gt).mask.cpu(), want[3])
+
+
+@pytest.mark.cuda
+def test_cuda_marching_tetrahedra_match_cpu(cuda_device):
+    """marching_tetrahedra on a sphere field on the card equals the CPU
+    port's triangles bit for bit, and compact_mesh the same mesh; twice."""
+    from ssrlcv_tpu_torch.mesh.marching_cubes import compact_mesh, marching_tetrahedra
+
+    ax = np.linspace(-1.2, 1.2, 40).astype(np.float32)
+    gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
+    field = torch.from_numpy((1.0 - np.sqrt(gx ** 2 + gy ** 2 + gz ** 2)).astype(np.float32))
+    origin = torch.full((3,), -1.2)
+    spacing = torch.full((3,), float(ax[1] - ax[0]))
+    tris, mask = marching_tetrahedra(field, origin, spacing)
+    verts, faces = compact_mesh(tris, mask)
+    for _ in range(2):
+        gt, gm = marching_tetrahedra(field.to(cuda_device), origin.to(cuda_device),
+                                     spacing.to(cuda_device))
+        assert torch.equal(gm.cpu(), mask) and torch.equal(gt.cpu(), tris)
+        gv, gf = compact_mesh(gt, gm)
+        np.testing.assert_array_equal(gv, verts)
+        np.testing.assert_array_equal(gf, faces)
