@@ -56,7 +56,17 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
      6) against the CPU port, the plane
      estimate, debug clouds and a mesh written and read back, and the
      reference features of tests/data through features_from_refdata and
-     seed_distances (K3) against the plain version.
+     seed_distances (K3) against the plain version;
+ 10. the multi-device stages (ssrlcv_tpu_torch.parallel): 10a the main
+     path's pair through run_pipeline(mesh=...) in this process over a
+     1 x 1 mesh of a one-rank NCCL group; 10b the same in 2 spawned processes
+     on cuda:0, a gloo group and a 2 x 1 mesh (K1 and K2 on each rank's
+     image, K3 on each rank's query shard); each held to phase 3's filtered
+     matches and initial cloud (equal), and its BA final error (rtol 1e-3)
+     to phase 3's for 10a, to a plain reference summing the same two track
+     blocks for 10b (and to phase 3's within the order spread, rtol 2e-2);
+     each rank's stage seconds.  One card gives no evidence of NCCL
+     scale-out.
 
 Kernel times are device times from CUDA events over back-to-back launches
 queued behind a device-side sleep (ssrlcv_tpu_torch.bench.timing).  Each
@@ -527,15 +537,29 @@ def phase_gather(dev):
     if not torch.equal(out, G.patch_row_sums_plain(*args)):
         fail("K6 differs from its plain version")
     plain_ms = cuda_ms(lambda: G.patch_row_sums_plain(*args), 2, "K6 plain")
+    # K6's parts (memset, key lists, band kernel): device time per call
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            G.patch_row_sums(*args)
+        torch.cuda.synchronize()
+    parts = {e.key.replace("(anonymous namespace)::", "").split("(")[0].strip():
+             e.device_time_total / e.count
+             for e in prof.key_averages() if e.device_time_total > 0}
+    print("[kernels] K6 parts (us a call, torch.profiler): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     print(f"[kernels] K6 patch row sums: B,H,W = {G.B},{G.H},{G.W}, K = {G.K}, S = {G.S}, "
-          f"bit-identical; {res['h_ms']:.4f} ms, {res['h_gb_s']:.1f} GB/s patch traffic, vs "
+          f"bit-identical; {res['h_ms']:.4f} ms, {res['h_gb_s']:.1f} GB/s over the bytes it must "
+          f"move (the plane under the keys' patches, the keys, the output), vs "
           f"plain {plain_ms:.3f} ms; strategy A (multi-dim gather) {res['a_ms']:.3f} ms, "
           f"{res['a_melem_s']:.0f} Melem/s")
     if not (res["h_queued"] and res["a_queued"]):
         print("[timing] K6 benchmark: host-bound, the window includes host gaps")
     if launches == 0:
         fail("the gather benchmark did not launch K6")
-    b6 = bound(_nbytes(*args[:4], out), 0, H100_FP32_PER_S)
+    # the bytes under the keys' patches, not of the whole (B, H, W) tensor
+    b6 = bound(G.function_bytes(*args), 0, H100_FP32_PER_S)
     return {"patch_row_sums": {"max_abs_err": 0.0, "ms": res["h_ms"], "plain_ms": plain_ms,
                                "phase": "2: bench.gather_patches", "launches": launches,
                                **b6, "library_ms": None}}
@@ -1420,6 +1444,233 @@ def phase_mesh(st, dev):
     return {"best_target": k3}, times
 
 
+# BA final error over a mesh against its reference (tests/test_sharded.py):
+# for 10a phase 3's single-device BA; for 10b the plain reference that sums
+# the same two track blocks (_blocked_lm), because the single-device LM on
+# these tracks lands ~1 % apart when only the order the tracks are summed in
+# changes (the reversed-order run printed in 10b; PERF.md §6).  10b is also
+# held to phase 3's BA within that order spread, MESH_BA_ORDER_RTOL.
+MESH_BA_RTOL = 1e-3
+MESH_BA_ORDER_RTOL = 2e-2
+
+
+def _blocked_lm(matches, cams, blocks: int, iterations: int = 10):
+    """The plain reference of BA over ``blocks`` data ranks, in one
+    process: the 2-view LM loop of ba.two_view (mode "lm", camera 0 pinned)
+    with the error, gradient and Hessian each the sum, in rank order, of
+    the torch.func values over the tracks' equal blocks (padded with masked
+    tracks).  Returns the (initial, final) error."""
+    from torch.func import grad, hessian
+
+    from ssrlcv_tpu_torch.ba.two_view import make_objective
+    from ssrlcv_tpu_torch.core.types import MatchSet
+
+    n = -(-matches.capacity // blocks)
+    pad = n * blocks - matches.capacity
+    fields = {k: torch.cat([v, torch.full((pad,) + tuple(v.shape[1:]), -1 if k == "kp_parent" else 0,
+                                          dtype=v.dtype, device=v.device)])
+              for k, v in vars(matches).items()}
+    objs = [make_objective(MatchSet(**{k: v[i * n:(i + 1) * n] for k, v in fields.items()}), cams)
+            for i in range(blocks)]
+
+    def total(fn, p):
+        out = fn(objs[0])(p)
+        for o in objs[1:]:
+            out = out + fn(o)(p)
+        return out
+
+    p = torch.cat([cams.cam_pos, cams.cam_rot], dim=1).reshape(-1)
+    free = torch.ones_like(p)
+    free[:6] = 0.0
+    init = best_err = total(lambda o: o, p)
+    lam = torch.tensor(1e-3, dtype=p.dtype, device=p.device)  # a float32 lambda, as the LM's
+    for i in range(iterations):
+        H, g = total(hessian, p), total(grad, p) * free
+        damped = H + lam * torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
+        damped = damped * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+        new = p - torch.linalg.solve_ex(damped, g)[0] * free
+        err = total(lambda o: o, new)
+        if bool(err < best_err):
+            p, best_err, lam = new, err, lam * 0.3
+        elif i > 0:
+            break
+        else:
+            lam *= 10.0
+    return float(init), float(best_err)
+
+
+def _mesh_run(mesh, out_dir, device):
+    """Seed SIFT + run_pipeline over ``mesh`` on the main path's pair (the
+    config of phase 3), counters reset just before.  Returns (state,
+    launches, host seconds)."""
+    from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig, SIFTParams
+    from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
+    from ssrlcv_tpu_torch.features.sift import generate_features
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.pipeline import stages as S
+    from ssrlcv_tpu_torch.synthetic import make_scene
+
+    scene = make_scene(SEED, SIZE)
+    cfg = PipelineConfig(output_dir=out_dir).replace(
+        match=MatchParams(epsilon=25.0, delta=5.0), sift=SIFTParams())
+    counters = (orientation_histograms, descriptor_histograms, best_target)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seed_fs = generate_features(scene.seed_image.pixels, cfg.sift, image_id=-1, device=device)
+    st = S.run_pipeline(S.PipelineState(config=cfg, images=scene.images, seed_features=seed_fs,
+                                        device=device, mesh=mesh))
+    torch.cuda.synchronize()
+    return st, {fn.__name__: fn.launches for fn in counters}, time.perf_counter() - t0
+
+
+def _ba_gate(tag, ba, ref_ba, rtol=MESH_BA_RTOL):
+    """BA's final error not above its initial one and within ``rtol`` of
+    ``ref_ba``'s; a list of failures."""
+    if ba[1] <= ba[0] and abs(ba[1] - ref_ba[1]) <= rtol * abs(ref_ba[1]):
+        return []
+    return [f"{tag}: BA {tuple(ba)} against {tuple(float(x) for x in ref_ba)} (rtol {rtol})"]
+
+
+def _mesh_gates(tag, st, launches, ref):
+    """The mesh run's gates against phase 3's state ``ref`` (a dict of numpy
+    arrays): every main-path kernel launched, the filtered matches equal,
+    the initial cloud (one point per match) equal.  Returns a list of
+    failures."""
+    from ssrlcv_tpu_torch.io import ply
+
+    bad = []
+    if any(v == 0 for v in launches.values()):
+        bad.append(f"{tag}: a kernel of the main path was not launched ({launches})")
+    m = st.matches.to_numpy()
+    if not (np.array_equal(m["mask"], ref["mask"]) and np.array_equal(m["kp_loc"], ref["kp_loc"])):
+        bad.append(f"{tag}: the filtered matches differ from phase 3's")
+    initial = ply.read_ply(os.path.join(st.config.output_dir, "ssrlcv-initial.ply"))["points"]
+    if not np.array_equal(initial, ref["initial"]):
+        bad.append(f"{tag}: the initial cloud differs from phase 3's")
+    return bad
+
+
+def _mesh_rank(rank, world, port, ref_path, out_root, device, results):
+    """One rank of phase 10b (a spawned process): a gloo group of ``world``
+    ranks on ``device``, a (world x 1) mesh, the main path over it."""
+    from ssrlcv_tpu_torch.parallel import mesh as pm
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    try:
+        pm.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+        try:
+            mesh = pm.make_mesh(world, 1, device_type="cpu")
+            st, launches, seconds = _mesh_run(mesh, os.path.join(out_root, f"p{rank}"), device)
+            ref = dict(np.load(ref_path))
+            results.put((rank, launches, seconds, dict(st.stage_seconds), st.ba_error,
+                         _mesh_gates(f"10b rank {rank}", st, launches, ref)))
+        finally:
+            torch.distributed.destroy_process_group()
+    except Exception as e:  # reported to the parent, which fails the run
+        results.put((rank, {}, 0.0, {}, None, [f"10b rank {rank}: {type(e).__name__}: {e}"]))
+        raise
+
+
+def phase_multi_device(st3, dev):
+    """10a: one process, NCCL, a 1 x 1 mesh; 10b: 2 gloo ranks spawned on
+    cuda:0, a 2 x 1 mesh.  Each runs the main path's pair through
+    run_pipeline(mesh=...) at full width and is held to phase 3's state
+    ``st3``.  One card gives no evidence of NCCL scale-out (NCCL refuses two
+    ranks on one card): 10b shows the sharded stages' collectives and
+    gathers across processes, not their speed."""
+    import multiprocessing as mp
+    import socket
+
+    from ssrlcv_tpu_torch.io import ply
+    from ssrlcv_tpu_torch.parallel import mesh as pm
+
+    m3 = st3.matches.to_numpy()
+    ref = {"mask": m3["mask"], "kp_loc": m3["kp_loc"], "ba": np.array(st3.ba_error),
+           "initial": ply.read_ply(os.path.join(st3.config.output_dir,
+                                                "ssrlcv-initial.ply"))["points"]}
+    root = os.path.join("out", "chip_smoke_multi")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ref_path = os.path.join(root, "phase3.npz")
+    np.savez(ref_path, **ref)
+
+    if not pm.initialize_single("nccl"):
+        fail("10a: a process group existed before phase 10")
+    try:
+        mesh = pm.make_mesh(1, 1, device_type="cuda")
+        st, launches10a, seconds = _mesh_run(mesh, os.path.join(root, "single"), dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"[multi] 10a NCCL 1 x 1: stages (s, CUDA events) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in st.stage_seconds.items())
+          + f"; seed SIFT + pipeline {seconds:.3f} s; matches {st.matches.count()}; "
+          f"BA {st.ba_error[0]!r} -> {st.ba_error[1]!r}; launches {launches10a}")
+    bad = _mesh_gates("10a", st, launches10a, ref) + _ba_gate("10a", st.ba_error, st3.ba_error)
+    if bad:
+        fail("; ".join(bad))
+
+    world = 2
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, world, port, ref_path, root, str(dev), results))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(world):
+            rank, *rest = results.get(timeout=300)
+            got[rank] = rest
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    # the plain reference of the 2-rank sums, and the single-device LM on the
+    # same tracks summed in another order (reversed), printed for the spread
+    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust
+    from ssrlcv_tpu_torch.core.types import MatchSet
+    from ssrlcv_tpu_torch.pipeline import stages as S
+
+    cams = S.cameras_from_refimages(st3.images, dev)
+    blocked = _blocked_lm(st3.matches, cams, world)
+    rev = torch.flip(torch.arange(st3.matches.capacity, device=dev), [0])
+    r = bundle_adjust(MatchSet(**{k: v[rev] for k, v in vars(st3.matches).items()}), cams,
+                      st3.config.ba)
+    print(f"[multi] 10b BA references: {world} blocks summed in rank order "
+          f"{blocked[0]!r} -> {blocked[1]!r}; phase 3 {st3.ba_error[1]!r}; the same tracks "
+          f"reversed on one device {float(r.final_error)!r}")
+    launches10b = {}
+    bad = []
+    for rank in range(world):
+        launches, seconds, stages, ba, fails = got.get(rank, ({}, 0.0, {}, None, ["no result"]))
+        if ba:
+            bad += _ba_gate(f"10b rank {rank}", ba, blocked)
+            bad += _ba_gate(f"10b rank {rank} vs phase 3", ba, st3.ba_error, MESH_BA_ORDER_RTOL)
+        bad += fails
+        for k, v in launches.items():
+            launches10b[k] = launches10b.get(k, 0) + v
+        print(f"[multi] 10b gloo 2 x 1, rank {rank} on cuda:0: stages (s, CUDA events) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+              + f"; seed SIFT + pipeline {seconds:.3f} s; BA {ba}; launches {launches}")
+    print(f"[multi] 10b: {world} processes in {wall:.1f} s (start-up included)")
+    if bad or any(p.exitcode != 0 for p in procs):
+        fail("; ".join(bad) or "a 10b rank exited non-zero")
+    return launches10a, launches10b
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1464,11 +1715,13 @@ def main():
         recs[name]["dense"] = rec
     by_phase["8"], _ = phase_pushbroom(scene, counters, dev)
     by_phase["9"], _ = phase_mesh(main_state, dev)
+    by_phase["10a"], by_phase["10b"] = phase_multi_device(main_state, dev)
     for fn in counters:
         name = fn.__name__
-        recs[name].update(phase="3, 3b, 5, 6, 7, 8, 9: main path, brute path, command line (3 "
-                                "views; 2 views with --pose), dense SIFT and stereo, pushbroom "
-                                "cameras, mesh and reference features",
+        recs[name].update(phase="3, 3b, 5, 6, 7, 8, 9, 10a, 10b: main path, brute path, command "
+                                "line (3 views; 2 views with --pose), dense SIFT and stereo, "
+                                "pushbroom cameras, mesh and reference features, the main path "
+                                "over a 1 x 1 NCCL mesh and over 2 gloo ranks",
                           launches=sum(p.get(name, 0) for p in by_phase.values()),
                           launches_by_phase={k: p[name] for k, p in by_phase.items()
                                              if name in p})

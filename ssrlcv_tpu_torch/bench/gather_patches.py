@@ -13,12 +13,14 @@ measures two ways of doing that at the script's shapes (B, H, W = 5, 2048,
      keypoint an aligned (SPA, 128) patch of the packed plane, reduced to
      ``sum(|p|)`` over its rows in the lane frame.
 
-It prints each strategy's milliseconds (CUDA events) and, for H, the rate of
-patch traffic (the bytes K6 reads).  The keypoints draw from planes 1..B-2
-(three planes, 48 MB packed), which fit an H100's 50 MB L2 cache, so
-back-to-back launches read them from L2 and the rate is an L2 rate.  The
-script's strategies E, F and G are TPU packing and row-gather experiments
-with no kernel of their own; they are left out.
+It prints each strategy's milliseconds (CUDA events) and, for H, the rate
+over the bytes the function must move (``function_bytes``: each plane
+element under some key's patch read once, the keys, the output).  The
+keypoints draw from planes 1..B-2 and their patches cover lanes 0..1919 of
+them (47 MB), about an H100's 50 MB L2 cache, so back-to-back launches read
+them largely from L2.  The script's strategies E,
+F and G are TPU packing and row-gather experiments with no kernel of their
+own; they are left out.
 
 ``patch_row_sums`` takes its plain version ``patch_row_sums_plain`` only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -92,6 +94,43 @@ def patch_row_sums_plain(plane, bi, cy, cx, s: int = S):
     return acc
 
 
+def slot_geometry(b: int, h: int, w: int, s: int) -> tuple[int, int, int]:
+    """(NX, NY, slots) of csrc/gather.cu: a key's slot is (bi * NX +
+    ceil(x0 / 128)) * NY + ceil(y0 / 8), one per distinct (plane, x0, y0)."""
+    nx = -(-(w - LW) // 128) + 1
+    ny = -(-(h - patch_rows(s)) // 8) + 1
+    return nx, ny, b * nx * ny
+
+
+def key_slots(bi, cy, cx, s: int, h: int, w: int):
+    """Each key's slot (``slot_geometry``)."""
+    nx, ny, _ = slot_geometry(0, h, w, s)
+    y0, x0 = _origins(cy, cx, s, h, w)
+    return (bi.long() * nx + -(-x0.long() // 128)) * ny + -(-y0.long() // 8)
+
+
+def function_bytes(plane, bi, cy, cx, s: int = S) -> int:
+    """The bytes ``patch_row_sums`` must move: each plane element under some
+    key's (SPA, 128) patch read once, bi / cy / cx, and the (K, 128)
+    float32 output."""
+    b, h, w = plane.shape
+    k = bi.shape[0]
+    if k == 0:
+        return 0
+    # +1 at each patch's first row, -1 past its last, per lane; a running
+    # sum down the rows is then > 0 exactly on the covered elements
+    y0, x0 = _origins(cy, cx, s, h, w)
+    lanes = x0.long()[:, None] + torch.arange(LANES, device=plane.device)
+    planes = bi.long()[:, None].expand_as(lanes)
+    ones = torch.ones(lanes.shape, dtype=torch.int32, device=plane.device)
+    edges = torch.zeros((b, h + 1, w), dtype=torch.int32, device=plane.device)
+    edges.index_put_((planes, y0.long()[:, None].expand_as(lanes), lanes), ones, accumulate=True)
+    edges.index_put_((planes, (y0.long() + patch_rows(s))[:, None].expand_as(lanes), lanes),
+                     -ones, accumulate=True)
+    covered = int((torch.cumsum(edges, 1, dtype=torch.int32) > 0).sum())
+    return covered * plane.element_size() + 3 * k * 4 + k * LANES * 4
+
+
 def _check(plane, bi, cy, cx, s: int):
     if plane.dim() != 3:
         raise ValueError(f"plane must be (B, H, W), got {tuple(plane.shape)}")
@@ -108,29 +147,36 @@ def _check(plane, bi, cy, cx, s: int):
             raise ValueError(f"{name} is on {t.device}, plane on {plane.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    _, h, w = plane.shape
+    b, h, w = plane.shape
     if h < patch_rows(s) or w < LW:
         raise ValueError(f"the plane must be at least {patch_rows(s)} x {LW}, got {h} x {w}")
+    if plane.device.type == "cuda":
+        if w % 4 or plane.data_ptr() % 16:
+            raise ValueError("on the card the plane must be 16-byte aligned with W % 4 == 0 "
+                             f"(W = {w})")
 
 
 def patch_row_sums(plane, bi, cy, cx, s: int = S):
     """Per-keypoint patch row sums of ``plane`` (B, H, W) float32 for
-    keypoints on planes ``bi`` centred at (cy, cx), each (K,) int32 ->
-    (K, 128) float32.  CPU tensors take the plain version; CUDA tensors the
-    K6 kernel."""
+    keypoints on planes ``bi`` (each in [0, B)) centred at (cy, cx), each
+    (K,) int32 -> (K, 128) float32.  CPU tensors take the plain version;
+    CUDA tensors the K6 kernel."""
     _check(plane, bi, cy, cx, s)
     if plane.device.type == "cpu":
         return patch_row_sums_plain(plane, bi, cy, cx, s)
     if plane.device.type != "cuda":
         raise ValueError(f"patch_row_sums: unsupported device {plane.device}")
-    _, h, w = plane.shape
+    b, h, w = plane.shape
     k = bi.shape[0]
     out = torch.empty((k, LANES), dtype=torch.float32, device=plane.device)
     if k == 0:
         return out
+    # the slots' list heads, then each key's next key (csrc/gather.cu)
+    scratch = torch.empty((slot_geometry(b, h, w, s)[2] + k,), dtype=torch.int32,
+                          device=plane.device)
     rc = _cuda.library().ssrlcv_patch_row_sums(
-        plane.data_ptr(), h, w, bi.data_ptr(), cy.data_ptr(), cx.data_ptr(), k, s,
-        out.data_ptr(), _cuda.stream_ptr(plane.device))
+        plane.data_ptr(), b, h, w, bi.data_ptr(), cy.data_ptr(), cx.data_ptr(), k, s,
+        scratch.data_ptr(), out.data_ptr(), _cuda.stream_ptr(plane.device))
     _cuda.check(rc, "ssrlcv_patch_row_sums")
     patch_row_sums.launches += 1
     return out
@@ -148,7 +194,7 @@ def measure(inp: dict, s: int = S, reps: int = 10) -> dict:
     h_ms, h_q = cuda_ms(lambda: patch_row_sums(inp["packed"], bi, cy, cx, s), reps)
     return {"a_ms": a_ms, "a_queued": a_q, "a_melem_s": k * s * s * 2 / a_ms / 1e3,
             "h_ms": h_ms, "h_queued": h_q,
-            "h_gb_s": k * patch_rows(s) * LANES * 4 / h_ms / 1e6}
+            "h_gb_s": function_bytes(inp["packed"], bi, cy, cx, s) / h_ms / 1e6}
 
 
 def main():
@@ -159,7 +205,7 @@ def main():
     print(f"A multi-dim gather (f32 pairs): {res['a_ms']:8.3f} ms  "
           f"{res['a_melem_s']:7.0f} Melem/s")
     print(f"H K6 patch row sums:            {res['h_ms']:8.3f} ms  "
-          f"{res['h_gb_s']:7.1f} GB/s patch traffic")
+          f"{res['h_gb_s']:7.1f} GB/s over the bytes it must move")
 
 
 if __name__ == "__main__":

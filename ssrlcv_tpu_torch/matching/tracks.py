@@ -46,12 +46,24 @@ def overlap_pairs(n: int, ordered: bool, estimated_overlap: float) -> list:
 
 def pairwise_index_matches(features: list, cameras: Cameras, params: MatchParams,
                            seed_features: Optional[FeatureSet] = None, ordered: bool = False,
-                           estimated_overlap: float = 0.0) -> dict:
+                           estimated_overlap: float = 0.0, mesh=None) -> dict:
     """Best-match index pairs of every kept (i < j) image pair, with a seed
     distance pass per new query image.  Returns {(i, j): (n, 2) int64 array
-    of (query feature, target feature)}."""
+    of (query feature, target feature)}.  ``mesh``: a (data, feat)
+    DeviceMesh (``parallel.mesh``); pair k then goes to flattened rank k %
+    ranks, and every rank's results are gathered
+    (``parallel.sharded._allgather_pair_matches``), so every rank returns
+    the same per-pair results as the serial sweep."""
     from ssrlcv_tpu_torch.matching import match as M
 
+    pairs = overlap_pairs(len(features), ordered, estimated_overlap)
+    mine = pairs
+    if mesh is not None:
+        from ssrlcv_tpu_torch.parallel.mesh import flat_rank
+
+        mine = pairs[flat_rank(mesh)::mesh.size()]
+    # a rank's pairs keep the list's order, so each query image's seed
+    # distances are computed once
     state = {"sd": None, "sd_img": -1}
 
     def dispatch(k, ij):
@@ -65,8 +77,12 @@ def pairwise_index_matches(features: list, cameras: Cameras, params: MatchParams
         return M.match_brute_force(features[i], features[j], params, seed_dist=state["sd"],
                                    index_only=True)
 
-    return windowed_pair_sweep(overlap_pairs(len(features), ordered, estimated_overlap),
-                               dispatch, DISPATCH_WINDOW)
+    local = windowed_pair_sweep(mine, dispatch, DISPATCH_WINDOW)
+    if mesh is None:
+        return local
+    from ssrlcv_tpu_torch.parallel.sharded import _allgather_pair_matches
+
+    return _allgather_pair_matches(local, pairs, mesh, features[0].loc.device)
 
 
 def windowed_pair_sweep(pairs: list, dispatch, window: int) -> dict:
@@ -158,11 +174,14 @@ def build_tracks(pair_matches: dict, num_images: int, feature_counts: list) -> l
 def generate_matches_exhaustive(features: list, cameras: Cameras, params: MatchParams,
                                 seed_features: Optional[FeatureSet] = None,
                                 ordered: bool = False,
-                                estimated_overlap: float = 0.0) -> MatchSet:
+                                estimated_overlap: float = 0.0, mesh=None) -> MatchSet:
     """Full N-view matching -> a padded MatchSet on the features' device
-    (capacity: the track count rounded up to 128, at least 128)."""
+    (capacity: the track count rounded up to 128, at least 128).  ``mesh``:
+    distribute the pair sweep over its ranks; every rank builds the same
+    tracks."""
     pair_matches = pairwise_index_matches(features, cameras, params, seed_features,
-                                          ordered=ordered, estimated_overlap=estimated_overlap)
+                                          ordered=ordered, estimated_overlap=estimated_overlap,
+                                          mesh=mesh)
     with logger.phase("build_tracks"):
         tracks = build_tracks(pair_matches, len(features), [f.capacity for f in features])
 

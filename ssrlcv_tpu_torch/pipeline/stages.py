@@ -14,7 +14,15 @@ initial, filtered and bundle-adjusted clouds as PLY files under
 stage and resumes at the first stage without a ``done`` marker.  When image 0
 is pushbroom, stage 0 also stacks the pushbroom cameras and stages 3-4
 triangulate pushbroom rays; stage 5 and a resume ignore them, as in the JAX
-package (ROADMAP.md caveats k, l).  Multi-device meshes are not ported.
+package (ROADMAP.md caveats k, l).
+
+With ``state.mesh`` (a (data, feat) DeviceMesh of ``parallel.mesh``, every
+rank of it running ``run_pipeline`` on its own device) the stages take the
+JAX package's distributed branches (``parallel.sharded``): image-parallel
+SIFT when there are several same-shape images, the sharded 2-view matchers,
+the distributed N-view pair sweep, and, for two views, track-sharded
+triangulation (not with pushbroom cameras) and bundle adjustment.  Every rank
+ends with the same state.
 """
 
 from __future__ import annotations
@@ -60,6 +68,9 @@ class PipelineState:
     ba_error: Optional[tuple] = None               # (initial, final)
     # PushbroomCameras when image 0 is pushbroom (set by stage 0 only)
     pushbrooms: Optional[PushbroomCameras] = None
+    # a (data, feat) DeviceMesh (parallel.mesh.make_mesh): the stages then
+    # run their distributed twins from parallel/sharded.py over it
+    mesh: Optional[object] = None
     stage_seconds: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -76,14 +87,24 @@ def _pose_runs(state: PipelineState) -> bool:
 
 def do_feature_generation(state: PipelineState) -> PipelineState:
     """Stage 0: cameras (and the pushbroom cameras when image 0 is
-    pushbroom), then SIFT per image."""
+    pushbroom), then SIFT per image, image-parallel over the mesh when there
+    is one and the images share a shape."""
     from ssrlcv_tpu_torch.features.sift import generate_features_many
 
     state.cameras = cameras_from_refimages(state.images, state.device)
     state.pushbrooms = pushbrooms_from_refimages(state.images, state.device)
-    state.features = generate_features_many(
-        [im.pixels for im in state.images], state.config.sift,
-        image_ids=[im.id for im in state.images], device=state.device)
+    pixels = [im.pixels for im in state.images]
+    ids = [im.id for im in state.images]
+    if (state.mesh is not None and len(state.images) > 1
+            and len({np.asarray(p).shape[:2] for p in pixels}) == 1):
+        from ssrlcv_tpu_torch.parallel.sharded import sharded_generate_features
+
+        with logger.phase("sift_sharded"):
+            state.features = sharded_generate_features(state.mesh, pixels, ids,
+                                                       state.config.sift, device=state.device)
+    else:
+        state.features = generate_features_many(pixels, state.config.sift, image_ids=ids,
+                                                device=state.device)
     for im, f in zip(state.images, state.features):
         logger.info(f"image {im.id}: {f.count()} features")
     return state
@@ -129,24 +150,39 @@ def do_feature_matching(state: PipelineState) -> PipelineState:
         state.seed_distances = sd
     if _two_view(state):
         f0, f1 = state.features
-        if cfg.mode == "double":
+        if state.mesh is not None:
+            from ssrlcv_tpu_torch.parallel import sharded
+
+            if cfg.mode == "double":
+                dm = sharded.sharded_match_double_constrained(state.mesh, f0, f1, state.cameras,
+                                                              0, 1, cfg, seed_dist=sd)
+            else:
+                dm = sharded.sharded_match_brute_force(state.mesh, f0, f1, cfg, seed_dist=sd)
+        elif cfg.mode == "double":
             dm = M.match_double_constrained(f0, f1, state.cameras, 0, 1, cfg, seed_dist=sd)
         else:
             dm = M.match_brute_force(f0, f1, cfg, seed_dist=sd)
         state.matches = M.matches_to_matchset(dm, f0, f1, 0, 1)
     else:
         state.matches = generate_matches_exhaustive(state.features, state.cameras, cfg,
-                                                    seed_features=state.seed_features)
+                                                    seed_features=state.seed_features,
+                                                    mesh=state.mesh)
     logger.info(f"total matches: {state.matches.count()}")
     return state
 
 
 def do_triangulation(state: PipelineState) -> PipelineState:
-    """Stage 3: bundles + 2-view or N-view triangulation."""
+    """Stage 3: bundles + 2-view or N-view triangulation (track-sharded over
+    the mesh for two pinhole views)."""
     from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
 
-    pc, err = triangulate_matches(state.matches, state.cameras, _two_view(state),
-                                  pushbrooms=state.pushbrooms)
+    if state.mesh is not None and _two_view(state) and state.pushbrooms is None:
+        from ssrlcv_tpu_torch.parallel.sharded import sharded_triangulate
+
+        pc, err = sharded_triangulate(state.mesh, state.matches, state.cameras)
+    else:
+        pc, err = triangulate_matches(state.matches, state.cameras, _two_view(state),
+                                      pushbrooms=state.pushbrooms)
     state.cloud = pc
     logger.info(f"initial cloud: {int(pc.mask.sum())} points, error {float(err):.6f}")
     _write_cloud(state, "ssrlcv-initial")
@@ -180,8 +216,15 @@ def do_bundle_adjust(state: PipelineState) -> PipelineState:
     """Stage 5: 2-view Levenberg-Marquardt, or N-view, bundle adjustment of
     the pinhole cameras (pushbroom cameras are not adjusted: with pushbroom
     images the pinhole fields are zero and the errors NaN, as in the JAX
-    package)."""
-    if _two_view(state):
+    package); over the mesh, 2-view LM with the sums taken over its data
+    axis."""
+    if _two_view(state) and state.mesh is not None:
+        from ssrlcv_tpu_torch.parallel.sharded import sharded_bundle_adjust
+
+        result = sharded_bundle_adjust(state.mesh, state.matches, state.cameras,
+                                       iterations=state.config.ba.iterations,
+                                       fix_camera0=state.config.ba.fixed_camera)
+    elif _two_view(state):
         from ssrlcv_tpu_torch.ba.two_view import bundle_adjust
 
         result = bundle_adjust(state.matches, state.cameras, state.config.ba)

@@ -271,11 +271,13 @@ def test_cli_matches_jax(cli_runs, scene3, case, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """--mesh raises NotImplementedError naming its ROADMAP.md item;
-    --device cuda without a card raises; a directory with one image returns
-    1.  Pushbroom cameras are dispatched on image 0 alone, as in the JAX
-    package: a set whose image 1 alone is pushbroom runs the pinhole path,
-    to the same cloud as without the flag."""
+    """--mesh auto on a directory with one image returns 1, as without the
+    flag, and leaves no process group behind; --mesh 2x2 in one process
+    raises, naming the world size; --device cuda without a card raises; a
+    directory with one image returns 1.  Pushbroom cameras are dispatched on
+    image 0 alone, as in the JAX package: a set whose image 1 alone is
+    pushbroom runs the pinhole path, to the same cloud as without the
+    flag."""
     from ssrlcv_tpu.io.images import pushbrooms_from_refimages as jax_stack
     from ssrlcv_tpu_torch.config import PipelineConfig, SIFTParams
     from ssrlcv_tpu_torch.pipeline import sfm as T
@@ -283,10 +285,15 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     from ssrlcv_tpu_torch.synthetic import make_scene, write_scene_dir
 
     scene = make_scene(seed=1, size=64)
-    d = str(tmp_path / "one")
+    d, two = str(tmp_path / "one"), str(tmp_path / "two")
     write_scene_dir(dataclasses.replace(scene, images=scene.images[:1]), d)
-    with pytest.raises(NotImplementedError, match="1.16"):
-        T.main(["-d", d, "--mesh", "auto", "--device", "cpu"])
+    write_scene_dir(scene, two)
+    out = str(tmp_path / "mesh_out")
+    assert T.main(["-d", d, "-o", out, "--mesh", "auto", "--device", "cpu"]) == 1
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="world size 1"):
+        T.main(["-d", two, "-o", out, "--mesh", "2x2", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.main(["-d", d])
@@ -303,6 +310,46 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
         clouds.append(st.cloud)
     assert torch.equal(clouds[0].mask, clouds[1].mask)
     assert torch.equal(clouds[0].points, clouds[1].points)
+
+
+def test_cli_mesh_matches_jax(scene3, tmp_path, monkeypatch):
+    """Both command lines with --mesh 1x1 on a 2-view directory (the port
+    starts a one-rank gloo group of its own): the distributed stages'
+    clouds agree as test_cli_matches_jax's do (point counts within 1 %, the
+    initial and filtered clouds' median nearest-neighbour distance within
+    1e-3 km, the BA error within 5 %), and the port's clouds equal its own
+    run without --mesh."""
+    from scipy.spatial import cKDTree
+
+    from ssrlcv_tpu.logging import logger as jax_logger
+    from ssrlcv_tpu.pipeline import sfm as J
+    from ssrlcv_tpu_torch.pipeline import sfm as T
+    from ssrlcv_tpu_torch.synthetic import write_scene_dir
+
+    monkeypatch.setattr(J, "PipelineConfig", _small_config)
+    monkeypatch.setattr(T, "PipelineConfig", _small_config)
+    d = str(tmp_path / "images")
+    seed = write_scene_dir(dataclasses.replace(scene3, images=scene3.images[:2]), d)
+    runs = (("torch", T.main, ["--mesh", "1x1", "--device", "cpu"]),
+            ("jax", J.main, ["--mesh", "1x1"]),
+            ("torch_single", T.main, ["--device", "cpu"]))
+    for pkg, main, extra in runs:
+        jax_logger.close()
+        assert main(_argv(d, seed, str(tmp_path / f"{pkg}_out"), str(tmp_path / f"{pkg}_ckpt"),
+                          False) + extra) == 0
+    assert not torch.distributed.is_initialized()
+    assert "distributed stages over mesh {'data': 1, 'feat': 1}" in _log(tmp_path)
+    for name in ("ssrlcv-initial", "ssrlcv-filtered", "ssrlcv-BA-final"):
+        t, j = _cloud(tmp_path, "torch", name), _cloud(tmp_path, "jax", name)
+        assert len(t) > 200 and abs(len(t) - len(j)) <= 0.01 * len(j), name
+        if name != "ssrlcv-BA-final":
+            assert np.median(cKDTree(j).query(t)[0]) <= 1e-3, name
+        np.testing.assert_allclose(t, _cloud(tmp_path, "torch_single", name), rtol=2e-6,
+                                   atol=1e-4, err_msg=name)
+    e = [[float(x) for x in line.split(":", 1)[1].split("->")]
+         for pkg in ("torch", "jax") for line in _log(tmp_path, pkg).splitlines()
+         if ",bundle adjust:" in line]
+    assert e[0][1] <= e[0][0] and e[0][1] == pytest.approx(e[1][1], rel=5e-2)
 
 
 def test_resume_without_match_capacity(cli_runs, monkeypatch):

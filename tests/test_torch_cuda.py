@@ -546,6 +546,50 @@ def test_cuda_patch_row_sums_matches_plain(cuda_device):
     assert torch.equal(got, patch_row_sums_plain(*args))
 
 
+GATHER_CASES = ["one_plane", "one_band", "edges", "one_key"]
+
+
+def _gather_case(case, seed=11):
+    """K6 inputs that stress its bucketing (csrc/gather.cu): keys on one
+    plane only; every key in one band of y slots of one (plane, x0) column,
+    with repeated slots; centres beyond the plane's edges, on a plane whose
+    H - SPA and W - 256 are not multiples of 8 and 128, so y0 and x0 clip to
+    unaligned values; a single key.  Returns (plane, bi, cy, cx) as numpy."""
+    rng = np.random.default_rng(seed)
+    b, h, w, k = {"one_plane": (4, 256, 512, 300), "one_band": (3, 256, 512, 200),
+                  "edges": (3, 301, 388, 400), "one_key": (2, 96, 256, 1)}[case]
+    plane = rng.standard_normal((b, h, w)).astype(np.float32)
+    bi = rng.integers(0, b, k)
+    cy = rng.integers(20, h - 20, k)
+    cx = rng.integers(70, w - 70, k)
+    if case == "one_plane":
+        bi[:] = 2
+    elif case == "one_band":  # y0 in 64..120, x0 = 128: slots 8..15 of one column
+        bi[:] = 1
+        cy = rng.integers(80, 144, k)
+        cx = rng.integers(192, 320, k)
+    elif case == "edges":
+        cy = rng.integers(-40, h + 40, k)
+        cx = rng.integers(-80, w + 80, k)
+        cy[:4], cx[:4] = (0, 0, h - 1, h - 1), (0, w - 1, 0, w - 1)
+    return plane, bi.astype(np.int32), cy.astype(np.int32), cx.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_cuda_patch_row_sums_buckets_match_plain(cuda_device, case):
+    """K6 on the bucketing cases: one launch, bit-identical to its plain
+    version and to itself."""
+    from ssrlcv_tpu_torch.bench.gather_patches import patch_row_sums, patch_row_sums_plain
+
+    args = [torch.from_numpy(a).to(cuda_device) for a in _gather_case(case)]
+    n = patch_row_sums.launches
+    got = patch_row_sums(*args)
+    assert patch_row_sums.launches == n + 1
+    assert torch.equal(got, patch_row_sums(*args))
+    assert torch.equal(got, patch_row_sums_plain(*args))
+
+
 @pytest.mark.cuda
 def test_cuda_new_wrappers_refuse_bad_arguments(cuda_device):
     """On the card the K4, K5 and K6 wrappers raise on what their kernels
@@ -569,6 +613,8 @@ def test_cuda_new_wrappers_refuse_bad_arguments(cuda_device):
         patch_row_sums(plane, k, k, k, 33)
     with pytest.raises(TypeError):
         patch_row_sums(torch.zeros((2, 256, 512), device=cuda_device), k.long(), k, k, 33)
+    with pytest.raises(ValueError, match="W % 4"):
+        patch_row_sums(torch.zeros((2, 256, 514), device=cuda_device), k, k, k, 33)
 
 
 def _dense_grid(cuda_device, size=256, seed=7):

@@ -13,7 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_cuda import _H, _K, _W, _WMAX, _match_case, _orient_inputs, _plane
+from test_torch_cuda import (GATHER_CASES, _H, _K, _W, _WMAX, _gather_case, _match_case,
+                             _orient_inputs, _plane)
 
 torch.set_num_threads(2)
 
@@ -236,6 +237,37 @@ def _strat_h_numpy(packed, bi, cy, cx, s):
             acc += np.abs(row)
         out[k] = acc[:128]
     return out
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_patch_row_sums_slots_and_bytes(case):
+    """On K6's bucketing cases: the plain version bit-identical to strat_h's
+    numpy restatement; every key in the slot its origins name, one slot per
+    distinct (plane, x0, y0) (the mapping of csrc/gather.cu, whose schedule
+    the card tests hold to the plain version); ``function_bytes`` counting
+    each plane element under some key's patch once."""
+    from ssrlcv_tpu_torch.bench.gather_patches import (_origins, function_bytes, key_slots,
+                                                       patch_row_sums_plain, slot_geometry)
+
+    plane, bi, cy, cx = _gather_case(case)
+    args = [torch.from_numpy(a) for a in (plane, bi, cy, cx)]
+    np.testing.assert_array_equal(patch_row_sums_plain(*args).numpy(),
+                                  _strat_h_numpy(plane, bi, cy, cx, 33))
+    b, h, w = plane.shape
+    nx, ny, nslots = slot_geometry(b, h, w, 33)
+    slot = key_slots(*args[1:], 33, h, w).numpy()
+    assert 0 <= slot.min() and slot.max() < nslots
+    y0, x0 = (t.numpy() for t in _origins(args[2], args[3], 33, h, w))
+    # one slot per distinct (plane, x0, y0), and back: y0 = min(8 * ys, H - SPA)
+    np.testing.assert_array_equal(slot // ny % nx, -(-x0 // 128))
+    np.testing.assert_array_equal(np.minimum(slot % ny * 8, h - 48), y0)
+    np.testing.assert_array_equal(np.minimum(slot // ny % nx * 128, w - 256), x0)
+    assert len(np.unique(slot)) == len({(a, c, d) for a, c, d in zip(bi, x0, y0)})
+    covered = np.zeros(plane.shape, bool)
+    for k in range(len(bi)):
+        covered[bi[k], y0[k]:y0[k] + 48, x0[k]:x0[k] + 128] = True
+    k = len(bi)
+    assert function_bytes(*args) == covered.sum() * 4 + 3 * k * 4 + k * 128 * 4
 
 
 def test_patch_row_sums_plain_matches_strat_h():
