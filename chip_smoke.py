@@ -67,6 +67,19 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
      blocks for 10b (and to phase 3's within the order spread, rtol 2e-2);
      each rank's stage seconds.  One card gives no evidence of NCCL
      scale-out.
+ 11. the measurement drivers (ssrlcv_tpu_torch.bench.{reconstruct,
+     profile_sift, match_kernel, nview, pose, dense, scaling} and
+     ssrlcv_tpu_torch.tester), each main in this process on the scene above
+     (reconstruct with --reps 1), its record printed on a [bench] line:
+     each record names the card and its kernels launched; reconstruct's
+     points and BA final error equal phase 3's (the same steps), with
+     bench.py's gates and the true-surface bound; profile_sift's parts
+     within generate_features' e2e time, and its marked call within
+     PROFILE_RTOL of that time; the tester (which renders its own scene,
+     as a user's run does) logs its start / end rows and a heartbeat;
+     dense's features equal phase 7a's; nview's tracks and pose's
+     post-pose matches printed beside phases 5 and 6, and pose's record
+     times nothing where no pair passes the pose thresholds.
 
 Kernel times are device times from CUDA events over back-to-back launches
 queued behind a device-side sleep (ssrlcv_tpu_torch.bench.timing).  Each
@@ -104,12 +117,12 @@ K2_MAX_U8_DIFF = 3
 K4_NO_MATCH = (0, 3.0e38)  # K4's (idx, dist) for a query with no admissible target
 MIN_POINTS = 1000          # the reconstruction-collapse bound of bench.py
 MAX_SURFACE_MEDIAN_M = 100.0
-# published peaks of one H100 SXM at 700 W (dense): the bound of a kernel is
-# the larger of its bytes (each input read once, each output written once)
-# over the memory rate and its operations over the peak rate of their type
-H100_BYTES_PER_S = 3.35e12
-H100_FP32_PER_S = 67e12
-H100_INT8_PER_S = 1979e12
+# profile_sift: generate_features with marks and without, each the least of
+# five host-clock runs taken alternately, may differ by this share; the
+# parts' sum may exceed the unmarked e2e time by it.  Two such readings of
+# one function came 0.9 % apart on the card (0.1751 / 0.1766 s), a copy of
+# the function that had drifted 12 % (0.1785 / 0.1587 s): this separates them
+PROFILE_RTOL = 0.10
 # fp32 operations per window sample: K1 magnitude, exp, atan2, bin and add
 # (~40); K2 ~40 of its own (rotation, rint, magnitude, exp, atan2, fmod)
 # plus ~8 for each of the ~4 cells x 2 bins it feeds
@@ -137,12 +150,14 @@ def phase_env():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    name = smi.splitlines()[0].rsplit(",", 1)[0].strip()
     from ssrlcv_tpu_torch import _cuda
 
     nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}, "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    return name
 
 
 def phase_build():
@@ -156,10 +171,14 @@ def phase_build():
           + (f" (nvcc {built:.2f} s)" if built is not None else " (already built)"))
 
 
-def bound(nbytes: float, ops: float, peak: float):
+def bound(nbytes: float, ops: float, kind: str):
     """(bound_ms, bound_by): the least time for ``nbytes`` of traffic and
-    ``ops`` operations at ``peak`` operations per second."""
-    tb, to = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+    ``ops`` operations of type ``kind`` ("fp32" or "int8") at the H100's
+    published peaks (ssrlcv_tpu_torch.bench.scene)."""
+    from ssrlcv_tpu_torch.bench import scene as SC
+
+    peak = {"fp32": SC.H100_FP32_PER_S, "int8": SC.H100_INT8_PER_S}[kind]
+    tb, to = nbytes / SC.H100_BYTES_PER_S * 1e3, ops / peak * 1e3
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
 
 
@@ -340,9 +359,9 @@ def phase_kernels_features(scene, dev):
         fail("the use_patches route disagrees with the K1 / K2 route")
     if k5["launches"] == 0:
         fail("the use_patches route did not launch K5")
-    b1 = bound(k1["io"], k1["samples"] * K1_OPS_PER_SAMPLE, H100_FP32_PER_S)
-    b2 = bound(k2["io"], k2["samples"] * K2_OPS_PER_SAMPLE, H100_FP32_PER_S)
-    b5 = bound(k5["io"], 0, H100_FP32_PER_S)
+    b1 = bound(k1["io"], k1["samples"] * K1_OPS_PER_SAMPLE, "fp32")
+    b2 = bound(k2["io"], k2["samples"] * K2_OPS_PER_SAMPLE, "fp32")
+    b5 = bound(k5["io"], 0, "fp32")
     print(f"[kernels] bounds: K1 {b1['bound_ms']:.4f} ms ({b1['bound_by']}; {k1['samples']} "
           f"window samples), K2 {b2['bound_ms']:.4f} ms ({b2['bound_by']}; {k2['samples']} "
           f"window samples), K5 {b5['bound_ms']:.4f} ms ({b5['bound_by']})")
@@ -481,7 +500,7 @@ def phase_kernels_match(scene, dev):
         del lib
         io = _nbytes(*args[:5], args[6], f0.mask, ik, dk)
         evaluated = _evaluated_pairs(args[2], args[6], args[3], args[4], args[5], f0.mask)
-        b = bound(io, 2 * 128 * pairs, H100_INT8_PER_S)
+        b = bound(io, 2 * 128 * pairs, "int8")
         for key, v in (("ms", t_k), ("no_q_valid_ms", t_a), ("plain_ms", t_p),
                        ("library_ms", t_l), ("io", io), ("ops", 2 * 128 * pairs)):
             k3[key] += v
@@ -504,7 +523,7 @@ def phase_kernels_match(scene, dev):
         t4p = cuda_ms(lambda: best_target_mma_plain(*args), 1, "K4 plain")
         io4 = _nbytes(*args[:5], args[6], *k4_out)
         evaluated4 = _evaluated_pairs(args[2], adm, args[3], args[4], args[5], None)
-        b4 = bound(io4, 2 * 128 * pairs4, H100_INT8_PER_S)
+        b4 = bound(io4, 2 * 128 * pairs4, "int8")
         for key, v in (("ms", t4), ("plain_ms", t4p), ("io", io4), ("ops", 2 * 128 * pairs4)):
             k4[key] += v
         print(f"[kernels] K4 {name}: {nq} x {nt} capacity (every row, {int(adm.sum())} "
@@ -514,8 +533,8 @@ def phase_kernels_match(scene, dev):
               f"K3 {t_a:.4f} ms (no q_valid) vs plain {t4p:.3f} ms; bound {b4['bound_ms']:.4f} ms "
               f"({b4['bound_by']}); {2 * 128 * pairs4 / t4 / 1e9:.1f} int8 TOPS on the pairs "
               f"needed")
-    b3 = bound(k3.pop("io"), k3.pop("ops"), H100_INT8_PER_S)
-    b4 = bound(k4.pop("io"), k4.pop("ops"), H100_INT8_PER_S)
+    b3 = bound(k3.pop("io"), k3.pop("ops"), "int8")
+    b4 = bound(k4.pop("io"), k4.pop("ops"), "int8")
     return {"best_target": {"max_abs_err": 0.0, **k3, **b3},
             "best_target_mma": {"max_abs_err": 0.0, **k4, **b4,
                                 "library_ms": k3["library_ms"]}}
@@ -559,7 +578,7 @@ def phase_gather(dev):
     if launches == 0:
         fail("the gather benchmark did not launch K6")
     # the bytes under the keys' patches, not of the whole (B, H, W) tensor
-    b6 = bound(G.function_bytes(*args), 0, H100_FP32_PER_S)
+    b6 = bound(G.function_bytes(*args), 0, "fp32")
     return {"patch_row_sums": {"max_abs_err": 0.0, "ms": res["h_ms"], "plain_ms": plain_ms,
                                "phase": "2: bench.gather_patches", "launches": launches,
                                **b6, "library_ms": None}}
@@ -825,7 +844,7 @@ def phase_cli_nview(scene3, counters):
         fail(f"the resumed run launched kernels: {again}")
     if abs(ba2[1] - ba[1]) > 1e-5 * abs(ba[1]):
         fail(f"the resumed BA error {ba2[1]!r} differs from the first run's {ba[1]!r}")
-    return launches
+    return launches, {"tracks": n_initial, "filtered_tracks": n_filtered}
 
 
 def phase_cli_pose(scene, counters):
@@ -863,7 +882,7 @@ def phase_cli_pose(scene, counters):
         fail("--pose run: BA final error exceeds the initial error")
     if not np.isfinite(pts).all():
         fail("non-finite points in the --pose BA cloud")
-    return launches
+    return launches, {"matches": len(_ply(out, "ssrlcv-initial"))}
 
 
 def phase_everest(dev):
@@ -999,7 +1018,7 @@ def phase_dense(scene, dev):
     k2_ms = cuda_ms(lambda: descriptor_histograms(*k2_args), 5, "K2 dense")
     b2 = bound(_nbytes(gx, gy, loc, theta, sig, vk),
                _k2_samples(theta, sig, 1.0, lam_d, 6, chunk=65536) * K2_OPS_PER_SAMPLE,
-               H100_FP32_PER_S)
+               "fp32")
     m = min(DENSE_PLAIN_ROWS, n)
     sub = (gx, gy, loc[:m], theta[:m], sig[:m], 1.0, lam_d, 6)
     vp = descriptor_histograms_plain(*sub)
@@ -1046,7 +1065,7 @@ def phase_dense(scene, dev):
     k1_ms = cuda_ms(lambda: orientation_histograms(*k1_args), 5, "K1 dense")
     b1 = bound(_nbytes(gx, gy, grid, gsig, hk),
                _k1_samples(gsig, 1.0, params.orientation_contrib_width, 5) * K1_OPS_PER_SAMPLE,
-               H100_FP32_PER_S)
+               "fp32")
     g = min(DENSE_PLAIN_ROWS, grid.shape[0])
     hp = orientation_histograms_plain(gx, gy, grid[:g], gsig[:g], *k1_args[4:])
     k1_err, k1_flip = _k1_gate(hk[:g], hp)
@@ -1670,6 +1689,121 @@ def phase_multi_device(st3, dev):
         fail("; ".join(bad) or "a 10b rank exited non-zero")
     return launches10a, launches10b
 
+# each driver of phase 11: (module, argv, the kernels it must launch)
+BENCH_DRIVERS = (
+    ("bench.reconstruct", ["--reps", "1"],
+     ("orientation_histograms", "descriptor_histograms", "best_target")),
+    ("bench.profile_sift", [], ("orientation_histograms", "descriptor_histograms")),
+    ("tester", ["--out", os.path.join("out", "chip_smoke_tester")], ("best_target",)),
+    ("bench.match_kernel", [], ("best_target",)),
+    ("bench.nview", [], ("orientation_histograms", "descriptor_histograms", "best_target")),
+    ("bench.pose", [], ("orientation_histograms", "descriptor_histograms", "best_target")),
+    ("bench.dense", [], ("descriptor_histograms",)),
+    ("bench.scaling", [], ("best_target",)),
+)
+
+
+def _run_driver(module, argv, scene3):
+    """``main(argv)`` of ``ssrlcv_tpu_torch.<module>`` in this process on
+    the synthetic scene at SIZE^2 (seed SEED): ``scene3`` where it is not
+    None, else rendered by the driver; its standard output captured;
+    returns (its record, seconds).  Fails unless the last line it printed
+    is that record, as JSON."""
+    import contextlib
+    import importlib
+    import inspect
+    import io
+
+    mod = importlib.import_module(f"ssrlcv_tpu_torch.{module}")
+    if "synthetic" in inspect.signature(mod.main).parameters:
+        argv = argv + ["--size", str(SIZE), "--seed", str(SEED)]
+        kw = {"synthetic": scene3} if scene3 is not None else {}
+    else:
+        kw = {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = mod.main(argv, **kw)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    try:
+        last = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"{module}: its last line is not a JSON record")
+    if last != json.loads(json.dumps(rec)):
+        fail(f"{module}: the record printed differs from the one returned")
+    return rec, seconds, lines
+
+
+def phase_bench(scene3, card, main_state, cli3, cli_pose, dense_features):
+    """Phase 11: every measurement driver's main on the card, on the
+    synthetic scene at SIZE^2 (seed SEED), each record printed on a
+    [bench] line; gated on its own checks and against phases 3, 7a.
+    Returns the launches the drivers counted, summed by kernel."""
+    launches = {}
+    recs = {}
+    t_phase = time.perf_counter()
+    for module, argv, kernels in BENCH_DRIVERS:
+        # the tester renders its scene, as a user's run does: its log's
+        # heartbeat (every second) beats while it renders
+        rec, seconds, lines = _run_driver(module, argv, None if module == "tester" else scene3)
+        name = module.split(".")[-1]
+        recs[name] = rec
+        print(f"[bench] {name} ({seconds:.1f} s): {json.dumps(rec)}")
+        if name == "tester":
+            print(f"[bench] tester printed: {lines[-2]}")
+        dev = rec.get("device", {})
+        if dev.get("name") != card or not dev.get("power_limit_w", 0) > 0:
+            fail(f"{name}: the record does not name the card {card!r}: {dev}")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        if not all(rec["launches"].get(k, 0) > 0 for k in kernels):
+            fail(f"{name}: a kernel of its path was not launched: {rec['launches']}")
+
+    r = recs["reconstruct"]
+    n3, ba3 = main_state.matches.count(), main_state.ba_error
+    print(f"[bench] reconstruct: {r['points']} points, BA {r['ba_initial_error']!r} -> "
+          f"{r['ba_final_error']!r}, cloud {r['cloud_vs_surface_m']:.3f} m from the true surface;"
+          f" phase 3: {n3} points, BA {ba3[0]!r} -> {ba3[1]!r}")
+    if not (r["points"] > MIN_POINTS and r["ba_final_error"] <= r["ba_initial_error"]):
+        fail("reconstruct: bench.py's gates (points > 1000, BA not up)")
+    if not r["cloud_vs_surface_m"] <= MAX_SURFACE_MEDIAN_M:
+        fail("reconstruct: the cloud is too far from the true surface")
+    if r["points"] != n3 or r["ba_final_error"] != ba3[1]:
+        fail("reconstruct: points or BA final error differ from phase 3's (the same steps)")
+    p = recs["profile_sift"]
+    print(f"[bench] profile_sift: parts {p['sum_of_parts_s']:.4f} s of the marked call's "
+          f"{p['pass_s']:.4f} s; generate_features e2e {p['value']:.4f} s (image 0)")
+    if not p["sum_of_parts_s"] <= p["value"] * (1.0 + PROFILE_RTOL):
+        fail("profile_sift: the sum of its parts exceeds the e2e SIFT time")
+    if not abs(p["pass_s"] - p["value"]) <= PROFILE_RTOL * p["value"]:
+        fail("profile_sift: the marked call's time is not generate_features' e2e time")
+    t = recs["tester"]
+    with open(t["log"]) as f:
+        rows = [line.rstrip("\n").split(",", 2)[1:] for line in f]
+    beats = rows.count(["comment", "heartbeat"])
+    print(f"[bench] tester: {len(rows)} log rows, {beats} heartbeats")
+    if ["state", "start"] not in rows or ["state", "end"] not in rows or beats < 1:
+        fail("tester: its log lacks the start / end rows or a heartbeat")
+    nv, po = recs["nview"], recs["pose"]
+    print(f"[bench] nview: {nv['tracks']} tracks -> {nv['filtered_tracks']} filtered, BA "
+          f"{nv['ba_initial_error']!r} -> {nv['ba_final_error']!r}; phase 5 (command line): "
+          f"{cli3['tracks']} -> {cli3['filtered_tracks']}")
+    print(f"[bench] pose: {po['pose_matches']} pose matches, {po['post_pose_matches']} "
+          f"post-pose matches; phase 6 (command line, --pose): {cli_pose['matches']}")
+    if po["pose_matches"] == 0:
+        print("[bench] pose: no pair of this scene passes the pose thresholds, so the pose "
+              "driver measures no LM here (value null)")
+    if (po["value"] is None) != (po["pose_matches"] == 0):
+        fail("pose: the record times an LM with no match, or times nothing with matches")
+    d = recs["dense"]
+    print(f"[bench] dense: {d['features']} features, warm {d['value']:.4f} s; phase 7a: "
+          f"{dense_features}")
+    if d["features"] != dense_features:
+        fail("dense: the feature count differs from phase 7a's")
+    print(f"[bench] phase 11 {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1683,7 +1817,7 @@ def main():
 
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
-    phase_env()
+    card = phase_env()
     phase_build()
     t0 = time.perf_counter()
     scene3 = make_scene(SEED, SIZE, n_views=3)
@@ -1708,20 +1842,23 @@ def main():
         launches=recs["best_target_mma"]["launches"] + k4_brute)
     phase_ba_modes(main_state, scene, dev)
     phase_everest(dev)
-    by_phase["5"] = phase_cli_nview(scene3, counters)
-    by_phase["6"] = phase_cli_pose(scene, counters)
+    by_phase["5"], cli3 = phase_cli_nview(scene3, counters)
+    by_phase["6"], cli_pose = phase_cli_pose(scene, counters)
     by_phase["7"], dense = phase_dense(scene, dev)
     for name, rec in dense.items():
         recs[name]["dense"] = rec
     by_phase["8"], _ = phase_pushbroom(scene, counters, dev)
     by_phase["9"], _ = phase_mesh(main_state, dev)
     by_phase["10a"], by_phase["10b"] = phase_multi_device(main_state, dev)
+    by_phase["11"] = phase_bench(scene3, card, main_state, cli3, cli_pose,
+                                 dense["descriptor_histograms"]["keypoints"])
     for fn in counters:
         name = fn.__name__
-        recs[name].update(phase="3, 3b, 5, 6, 7, 8, 9, 10a, 10b: main path, brute path, command "
-                                "line (3 views; 2 views with --pose), dense SIFT and stereo, "
-                                "pushbroom cameras, mesh and reference features, the main path "
-                                "over a 1 x 1 NCCL mesh and over 2 gloo ranks",
+        recs[name].update(phase="3, 3b, 5, 6, 7, 8, 9, 10a, 10b, 11: main path, brute path, "
+                                "command line (3 views; 2 views with --pose), dense SIFT and "
+                                "stereo, pushbroom cameras, mesh and reference features, the main "
+                                "path over a 1 x 1 NCCL mesh and over 2 gloo ranks, the "
+                                "measurement drivers",
                           launches=sum(p.get(name, 0) for p in by_phase.values()),
                           launches_by_phase={k: p[name] for k, p in by_phase.items()
                                              if name in p})

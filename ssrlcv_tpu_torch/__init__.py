@@ -13,12 +13,14 @@ counterpart is easy to find:
     matching/    exact descriptor distances, epipolar-gated best target
                  (kernel K3; kernel K4 on the tensor cores), brute-force,
                  F-matrix and double-constrained matching, match-set assembly
-    bench/       device timing and the patch-gather micro-benchmark (kernel K6)
+    bench/       device timing, the patch-gather micro-benchmark (kernel K6) and
+                 the measurement drivers (bench.py's and scripts/' counterparts)
     geometry/    bundles, 2-view triangulation, filters
     ba/          2-view bundle adjustment (Levenberg-Marquardt, torch.func)
     pipeline/    the 2-view reconstruction stages
 
-    config.py    the pipeline's parameters; logging.py the CSV logger
+    config.py    the pipeline's parameters; logging.py the CSV logger;
+    tester.py    the reference's Tester executable (logger + match -> triangulate)
 
 It imports ``torch`` and never ``jax``, nor any module of the JAX package:
 its configuration, logger, fixture reader and PLY writer are its own copies.

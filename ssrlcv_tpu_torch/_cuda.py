@@ -35,9 +35,8 @@ _SIGNATURES = {
     "ssrlcv_orient_hist": [_P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _P, _P],
     "ssrlcv_desc_hist": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "ssrlcv_match_keys": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
-    "ssrlcv_match_best": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P],
     "ssrlcv_match_layout": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
+    "ssrlcv_match_run": [_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "ssrlcv_match_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P],
     "ssrlcv_extract_patches": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ssrlcv_patch_row_sums": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],

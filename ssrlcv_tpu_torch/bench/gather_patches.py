@@ -33,6 +33,7 @@ import torch
 
 from ssrlcv_tpu_torch import _cuda
 from ssrlcv_tpu_torch.bench.timing import cuda_ms
+from ssrlcv_tpu_torch.core.device import resolve_device
 
 B, H, W = 5, 2048, 2048
 K, S = 16384, 33
@@ -46,10 +47,12 @@ def patch_rows(s: int) -> int:
 
 
 def make_inputs(seed: int = 0, b: int = B, h: int = H, w: int = W, k: int = K, s: int = S,
-                device="cpu") -> dict:
-    """The script's data: (b, h, w, 2) float32 standard-normal gradients,
-    their packed plane (``pack``), and per keypoint a plane index ``bi`` and
-    an in-bounds centre (cy, cx), all from one numpy generator."""
+                device=None) -> dict:
+    """The script's data on ``device`` (None: ``cuda:0``): (b, h, w, 2)
+    float32 standard-normal gradients, their packed plane (``pack``), and
+    per keypoint a plane index ``bi`` and an in-bounds centre (cy, cx), all
+    from one numpy generator."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     grads = rng.standard_normal((b, h, w, 2), dtype=np.float32)
     wmax = s // 2
@@ -200,7 +203,7 @@ def measure(inp: dict, s: int = S, reps: int = 10) -> dict:
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("gather_patches: needs a CUDA device")
-    res = measure(make_inputs(device=torch.device("cuda:0")))
+    res = measure(make_inputs())
     print(f"device {torch.cuda.get_device_name(0)}; B,H,W = {B},{H},{W}, K = {K}, S = {S}")
     print(f"A multi-dim gather (f32 pairs): {res['a_ms']:8.3f} ms  "
           f"{res['a_melem_s']:7.0f} Melem/s")

@@ -454,23 +454,18 @@ extern "C" int ssrlcv_match_layout(const void* q, const void* t, const void* t_l
   return static_cast<int>(cudaGetLastError());
 }
 
-// Step 2: the layout (step 2a), then the best targets (scratch: nq 8-byte
+// Step 2b: the best targets on a layout of step 2a (scratch: nq 8-byte
 // words for the running (d, idx) of every row).
-extern "C" int ssrlcv_match_best(const void* q, const void* t, const void* t_loc,
-                                 const void* t_valid, const void* p1, const void* p2,
-                                 const void* q_valid, const void* qperm, const void* tperm,
-                                 float eps, int nq, int nt, void* qn, void* meta, void* qbox,
-                                 void* tbox, void* scratch, void* out_idx, void* out_dist,
-                                 void* stream) {
+extern "C" int ssrlcv_match_run(const void* q, const void* t, const void* q_valid,
+                                const void* p1, const void* p2, const void* qperm,
+                                const void* tperm, float eps, int nq, int nt, const void* qn,
+                                const void* meta, const void* qbox, const void* tbox,
+                                void* scratch, void* out_idx, void* out_dist, void* stream) {
   if (nq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntiles = max((nt + kT - 1) / kT, 1);
-  cudaError_t e = static_cast<cudaError_t>(ssrlcv_match_layout(
-      q, t, t_loc, t_valid, p1, p2, q_valid, qperm, tperm, eps, nq, nt, qn, meta, qbox, tbox,
-      stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
   auto* best = static_cast<unsigned long long*>(scratch);
-  e = cudaMemsetAsync(best, 0xff, sizeof(unsigned long long) * nq, st);
+  cudaError_t e = cudaMemsetAsync(best, 0xff, sizeof(unsigned long long) * nq, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);

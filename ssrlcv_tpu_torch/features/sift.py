@@ -56,43 +56,74 @@ def _describe_buckets(params: SIFTParams):
     return range(1, params.blurs_per_octave - 2)
 
 
-def _describe_bucket(kps, gx, gy, params: SIFTParams, b: int, pixel_width: float):
-    """One blur bucket on its gradient plane: compact -> orientations (K1)
-    -> compact -> descriptors (K2).  Returns (loc_image, sigma, theta,
-    desc) of the bucket's oriented keypoints in emission order."""
+def detect_octave(octave, params: SIFTParams, o: int, height: int, width: int):
+    """Octave ``o``'s keypoints: the first ``octave_capacity`` extrema of its
+    DoG, refined, then the descriptor-border check."""
+    sigmas = tuple(ss.octave_sigmas(params, o))[: params.blurs_per_octave - 1]
+    pixel_width = float(2.0 ** (params.starting_octave + o))
+    kps = find_keypoints_octave(octave.dog_raw, octave.dog_norm, sigmas, params,
+                                octave_capacity(params, o, height, width))
+    oh, ow = octave.dog_raw.shape[1], octave.dog_raw.shape[2]
+    return check_descriptor_border(kps, (oh, ow), params.descriptor_contrib_width, pixel_width)
+
+
+def _bucket_keypoints(kps, b: int):
+    """The keypoints of DoG blur bucket ``b``, compacted."""
+    return kps.select(torch.nonzero(kps.mask & (kps.blur == b)).squeeze(1))
+
+
+def _describe_bucket(sel, gx, gy, params: SIFTParams, b: int, pixel_width: float):
+    """One blur bucket's compacted keypoints on its gradient plane:
+    orientations (K1) -> compact -> descriptors (K2).  Returns the oriented
+    keypoints and their (loc_image, sigma, theta, desc) in emission order."""
     w_o, w_d = _bucket_windows(params, b)
-    sel = torch.nonzero(kps.mask & (kps.blur == b)).squeeze(1)
-    oriented = compute_orientations(gx, gy, kps.select(sel), pixel_width, params, w_max=w_o)
+    oriented = compute_orientations(gx, gy, sel, pixel_width, params, w_max=w_o)
     oriented = oriented.select(torch.nonzero(oriented.mask).squeeze(1))
     desc, loc_image = fill_descriptors(gx, gy, oriented, pixel_width, params, w_max=w_d)
-    return loc_image, oriented.sigma, oriented.theta, desc
+    return oriented, (loc_image, oriented.sigma, oriented.theta, desc)
+
+
+def _no_mark(key, value):
+    pass
 
 
 def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int = -1,
-                      device=None) -> FeatureSet:
+                      device=None, mark=None) -> FeatureSet:
     """SIFT features of one grayscale (or RGB) uint8 image, on ``device``
     (when None: the device of ``pixels`` if it is a tensor, else
     ``cuda:0``, which raises without a card).  Returns a FeatureSet of capacity ``max_keypoints``
-    ordered (octave, blur bucket, detection order)."""
+    ordered (octave, blur bucket, detection order).
+
+    ``mark``, when given, is called after each part of the work as
+    ``mark(key, value)``: ``("scale_space_s",)`` with the octaves; per
+    octave ``o`` ``(o, "detect_s")`` with its keypoints and ``(o,
+    "grads_s")`` with its gradient planes (gx, gy); per blur bucket ``b``
+    ``(o, b, "compact_s")`` with its compacted keypoints and ``(o, b,
+    "describe_s")`` with ``_describe_bucket``'s result; last
+    ``("aggregate_s",)`` with the FeatureSet (``bench.profile_sift``)."""
     params = params or SIFTParams()
+    mark = mark or _no_mark
     px = as_device_tensor(pixels, device)
     device = px.device
     if px.ndim == 3:
         px = ops.to_bw(px)
     h, w = int(px.shape[0]), int(px.shape[1])
 
+    octaves = ss.build_scale_space(px, params, h, w)
+    mark(("scale_space_s",), octaves)
     parts = []
-    for o, octave in enumerate(ss.build_scale_space(px, params, h, w)):
-        sigmas = tuple(ss.octave_sigmas(params, o))[: params.blurs_per_octave - 1]
+    for o, octave in enumerate(octaves):
         pixel_width = float(2.0 ** (params.starting_octave + o))
-        cap = octave_capacity(params, o, h, w)
-        kps = find_keypoints_octave(octave.dog_raw, octave.dog_norm, sigmas, params, cap)
-        oh, ow = octave.dog_raw.shape[1], octave.dog_raw.shape[2]
-        kps = check_descriptor_border(kps, (oh, ow), params.descriptor_contrib_width,
-                                      pixel_width)
+        kps = detect_octave(octave, params, o, h, w)
+        mark((o, "detect_s"), kps)
         gx, gy = ops.pixel_gradients(octave.dog_norm)
+        mark((o, "grads_s"), (gx, gy))
         for b in _describe_buckets(params):
-            parts.append(_describe_bucket(kps, gx[b], gy[b], params, b, pixel_width))
+            sel = _bucket_keypoints(kps, b)
+            mark((o, b, "compact_s"), sel)
+            described = _describe_bucket(sel, gx[b], gy[b], params, b, pixel_width)
+            mark((o, b, "describe_s"), described)
+            parts.append(described[1])
 
     loc = torch.cat([p[0] for p in parts])
     sigma = torch.cat([p[1] for p in parts])
@@ -110,6 +141,7 @@ def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int
     out.theta[:n] = theta[:n]
     out.descriptors[:n] = desc[:n]
     out.mask[:n] = True
+    mark(("aggregate_s",), out)
     return out
 
 

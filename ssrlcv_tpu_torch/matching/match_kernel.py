@@ -13,6 +13,8 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from ssrlcv_tpu_torch import _cuda
@@ -179,20 +181,27 @@ def best_target_tiled(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid, q_
     its ``spatial_order``, ``live_tiles``): a restatement of the kernel's
     skip decisions, which give the plain version's answers when the skip is
     exact."""
-    qperm, tperm = spatial_order(t_loc, t_valid, p1, p2, q_valid)
-    live = live_tiles(*tile_boxes(t_loc, p1, p2, epsilon, t_valid, q_valid, qperm, tperm))
-    dev = q_desc.device
-    q_warp = torch.empty_like(qperm, dtype=torch.int64)
-    q_warp[qperm.long()] = torch.arange(q_desc.shape[0], device=dev) // QW
-    t_tile = torch.empty_like(tperm, dtype=torch.int64)
-    t_tile[tperm.long()] = torch.arange(t_desc.shape[0], device=dev) // TT
+    return _launch_plain(prepare_plain(q_desc, t_desc, t_loc, p1, p2, epsilon, t_valid, q_valid),
+                         chunk)
+
+
+def _launch_plain(prep: "Prepared", chunk: int = 1024):
+    """``best_target_plain`` over the tiles of a prepared layout that pass
+    ``live_tiles``."""
+    live = live_tiles(prep.qbox, prep.tbox)
+    dev = prep.q_desc.device
+    q_warp = torch.empty_like(prep.qperm, dtype=torch.int64)
+    q_warp[prep.qperm.long()] = torch.arange(prep.q_desc.shape[0], device=dev) // QW
+    t_tile = torch.empty_like(prep.tperm, dtype=torch.int64)
+    t_tile[prep.tperm.long()] = torch.arange(prep.t_desc.shape[0], device=dev) // TT
 
     def gate(a, b, w):
-        return ((epipolar_segment_mask(a, b, t_loc, epsilon) | ~torch.isfinite(a[:, 0:1]))
-                & live[w][:, t_tile])
+        return ((epipolar_segment_mask(a, b, prep.t_loc, prep.epsilon)
+                 | ~torch.isfinite(a[:, 0:1])) & live[w][:, t_tile])
 
-    return _no_match(*best_target_chunked(q_desc, t_desc, t_valid, mask_fn=gate,
-                                          mask_aux=(p1, p2, q_warp), chunk=chunk), q_valid)
+    return _no_match(*best_target_chunked(prep.q_desc, prep.t_desc, prep.t_valid, mask_fn=gate,
+                                          mask_aux=(prep.p1, prep.p2, q_warp), chunk=chunk),
+                     prep.q_valid)
 
 
 def _check(q_desc, t_desc, t_loc, p1, p2, t_valid, q_valid=None):
@@ -261,6 +270,87 @@ def layout_buffers(nq: int, nt: int, dev):
             torch.empty((ntiles, 4), dtype=torch.float32, device=dev))
 
 
+class Prepared(NamedTuple):
+    """K3's operands in its layout: the inputs, the orders (qperm, tperm),
+    the squared query norms qn (Nq,) int32, ``target_meta`` and
+    ``tile_boxes``."""
+
+    q_desc: torch.Tensor
+    t_desc: torch.Tensor
+    t_loc: torch.Tensor
+    t_valid: torch.Tensor
+    p1: torch.Tensor
+    p2: torch.Tensor
+    epsilon: float
+    q_valid: Optional[torch.Tensor]
+    qperm: torch.Tensor
+    tperm: torch.Tensor
+    qn: torch.Tensor
+    meta: torch.Tensor
+    qbox: torch.Tensor
+    tbox: torch.Tensor
+
+
+def prepare_plain(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid,
+                  q_valid=None) -> Prepared:
+    """K3's preparation restated in PyTorch (``spatial_order``,
+    ``target_meta``, ``tile_boxes``), on any device."""
+    qperm, tperm = spatial_order(t_loc, t_valid, p1, p2, q_valid)
+    qbox, tbox = tile_boxes(t_loc, p1, p2, epsilon, t_valid, q_valid, qperm, tperm)
+    return Prepared(q_desc, t_desc, t_loc, t_valid, p1, p2, float(epsilon), q_valid, qperm, tperm,
+                    (q_desc.to(torch.int32) ** 2).sum(1, dtype=torch.int32),
+                    target_meta(t_desc, t_loc, t_valid, tperm), qbox, tbox)
+
+
+def prepare(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid, q_valid=None) -> Prepared:
+    """K3's preparation, the step before its launch (``launch``): on a CUDA
+    device the orders (``device_orders``), then match.cu's layout kernel
+    (``ssrlcv_match_layout``) into ``layout_buffers``; for CPU tensors
+    ``prepare_plain``.  Arguments as ``best_target``."""
+    _check(q_desc, t_desc, t_loc, p1, p2, t_valid, q_valid)
+    if q_desc.device.type == "cpu":
+        return prepare_plain(q_desc, t_desc, t_loc, p1, p2, epsilon, t_valid, q_valid)
+    if q_desc.device.type != "cuda":
+        raise ValueError(f"best_target: unsupported device {q_desc.device}")
+    for name, t in (("q_desc", q_desc), ("t_desc", t_desc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    nq, nt, dev = q_desc.shape[0], t_desc.shape[0], q_desc.device
+    qperm, tperm = device_orders(t_loc, t_valid, p1, p2, q_valid)
+    layout = layout_buffers(nq, nt, dev)
+    qv = q_valid.data_ptr() if q_valid is not None else None
+    _cuda.check(_cuda.library().ssrlcv_match_layout(
+        q_desc.data_ptr(), t_desc.data_ptr(), t_loc.data_ptr(), t_valid.data_ptr(),
+        p1.data_ptr(), p2.data_ptr(), qv, qperm.data_ptr(), tperm.data_ptr(), float(epsilon),
+        nq, nt, *(b.data_ptr() for b in layout), _cuda.stream_ptr(dev)), "ssrlcv_match_layout")
+    return Prepared(q_desc, t_desc, t_loc, t_valid, p1, p2, float(epsilon), q_valid, qperm, tperm,
+                    *layout)
+
+
+def launch(prep: Prepared):
+    """K3 on a prepared layout -> (idx, dist) as ``best_target``: on a CUDA
+    device the kernel (``ssrlcv_match_run``), for CPU tensors the plain
+    version over the layout's tiles (``best_target_tiled``'s answer)."""
+    q_desc = prep.q_desc
+    if q_desc.device.type == "cpu":
+        return _launch_plain(prep)
+    nq, nt, dev = q_desc.shape[0], prep.t_desc.shape[0], q_desc.device
+    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
+    dist = torch.empty((nq,), dtype=torch.float32, device=dev)
+    if nq == 0:
+        return idx, dist
+    scratch = torch.empty((nq,), dtype=torch.int64, device=dev)
+    qv = prep.q_valid.data_ptr() if prep.q_valid is not None else None
+    rc = _cuda.library().ssrlcv_match_run(
+        q_desc.data_ptr(), prep.t_desc.data_ptr(), qv, prep.p1.data_ptr(), prep.p2.data_ptr(),
+        prep.qperm.data_ptr(), prep.tperm.data_ptr(), prep.epsilon, nq, nt,
+        *(b.data_ptr() for b in (prep.qn, prep.meta, prep.qbox, prep.tbox)), scratch.data_ptr(),
+        idx.data_ptr(), dist.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(rc, "ssrlcv_match_run")
+    best_target.launches += 1
+    return idx, dist
+
+
 def best_target(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid, q_valid=None):
     """Best valid target per query and its exact squared-L2 distance.
 
@@ -269,36 +359,12 @@ def best_target(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid, q_valid=
     t_valid (Nt,) bool, q_valid (Nq,) bool or None (every row) -> idx (Nq,)
     int32, dist (Nq,) float32; (0, +inf) where no target passes or q_valid
     is false.  CPU tensors take the plain version; CUDA tensors the K3
-    kernel."""
+    kernel (step 1: the orders; step 2: the layout, then the matcher)."""
     _check(q_desc, t_desc, t_loc, p1, p2, t_valid, q_valid)
     if q_desc.device.type == "cpu":
         return best_target_plain(q_desc, t_desc, t_loc, p1, p2, epsilon, t_valid,
                                  q_valid=q_valid)
-    if q_desc.device.type != "cuda":
-        raise ValueError(f"best_target: unsupported device {q_desc.device}")
-    for name, t in (("q_desc", q_desc), ("t_desc", t_desc)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    nq, nt = q_desc.shape[0], t_desc.shape[0]
-    idx = torch.empty((nq,), dtype=torch.int32, device=q_desc.device)
-    dist = torch.empty((nq,), dtype=torch.float32, device=q_desc.device)
-    if nq == 0:
-        return idx, dist
-    # step 1: the orders; step 2: target_meta / tile_boxes on the device,
-    # then the matcher
-    dev = q_desc.device
-    qperm, tperm = device_orders(t_loc, t_valid, p1, p2, q_valid)
-    layout = layout_buffers(nq, nt, dev)
-    scratch = torch.empty((nq,), dtype=torch.int64, device=dev)
-    qv = q_valid.data_ptr() if q_valid is not None else None
-    rc = _cuda.library().ssrlcv_match_best(
-        q_desc.data_ptr(), t_desc.data_ptr(), t_loc.data_ptr(), t_valid.data_ptr(),
-        p1.data_ptr(), p2.data_ptr(), qv, qperm.data_ptr(), tperm.data_ptr(), float(epsilon),
-        nq, nt, *(b.data_ptr() for b in layout), scratch.data_ptr(), idx.data_ptr(),
-        dist.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(rc, "ssrlcv_match_best")
-    best_target.launches += 1
-    return idx, dist
+    return launch(prepare(q_desc, t_desc, t_loc, p1, p2, epsilon, t_valid, q_valid))
 
 
 best_target.launches = 0

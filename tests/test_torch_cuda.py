@@ -337,32 +337,21 @@ def test_cuda_best_target_layout_matches_restatement(cuda_device):
     """K3's device-side preparation gives the plain restatement's sort
     keys' orders (spatial_order), per-target records (target_meta), boxes
     (tile_boxes) and squared query norms, exactly."""
-    from ssrlcv_tpu_torch import _cuda
-    from ssrlcv_tpu_torch.matching.match_kernel import (device_orders, layout_buffers,
-                                                        spatial_order, target_meta, tile_boxes)
+    from ssrlcv_tpu_torch.matching.match_kernel import (prepare, spatial_order, target_meta,
+                                                        tile_boxes)
 
     q, t, t_loc, p1, p2, t_valid, q_valid = (torch.from_numpy(a).to(cuda_device)
                                              for a in _skip_case())
-    nq, nt = q.shape[0], t.shape[0]
-    lib, stream = _cuda.library(), _cuda.stream_ptr(cuda_device)
-    qperm, tperm = device_orders(t_loc, t_valid, p1, p2, q_valid)
-    want_q, want_t = spatial_order(t_loc, t_valid, p1, p2, q_valid)
-    assert torch.equal(qperm, want_q) and torch.equal(tperm, want_t)
-    qn, meta, qbox, tbox = layout_buffers(nq, nt, cuda_device)
-    idx = torch.empty(nq, dtype=torch.int32, device=cuda_device)
-    dist = torch.empty(nq, dtype=torch.float32, device=cuda_device)
-    scratch = torch.empty(nq, dtype=torch.int64, device=cuda_device)
-    assert lib.ssrlcv_match_best(
-        q.data_ptr(), t.data_ptr(), t_loc.data_ptr(), t_valid.data_ptr(), p1.data_ptr(),
-        p2.data_ptr(), q_valid.data_ptr(), qperm.data_ptr(), tperm.data_ptr(), 25.0, nq, nt,
-        qn.data_ptr(), meta.data_ptr(), qbox.data_ptr(), tbox.data_ptr(), scratch.data_ptr(),
-        idx.data_ptr(), dist.data_ptr(), stream) == 0
+    prep = prepare(q, t, t_loc, p1, p2, 25.0, t_valid, q_valid)
     torch.cuda.synchronize()
-    want_meta = target_meta(t, t_loc, t_valid, tperm)
-    assert torch.equal(meta.view(torch.int32), want_meta.view(torch.int32))
-    want_qbox, want_tbox = tile_boxes(t_loc, p1, p2, 25.0, t_valid, q_valid, qperm, tperm)
-    assert torch.equal(qbox, want_qbox) and torch.equal(tbox, want_tbox)
-    assert torch.equal(qn, (q.int() ** 2).sum(1, dtype=torch.int32))
+    want_q, want_t = spatial_order(t_loc, t_valid, p1, p2, q_valid)
+    assert torch.equal(prep.qperm, want_q) and torch.equal(prep.tperm, want_t)
+    want_meta = target_meta(t, t_loc, t_valid, prep.tperm)
+    assert torch.equal(prep.meta.view(torch.int32), want_meta.view(torch.int32))
+    want_qbox, want_tbox = tile_boxes(t_loc, p1, p2, 25.0, t_valid, q_valid, prep.qperm,
+                                      prep.tperm)
+    assert torch.equal(prep.qbox, want_qbox) and torch.equal(prep.tbox, want_tbox)
+    assert torch.equal(prep.qn, (q.int() ** 2).sum(1, dtype=torch.int32))
 
 
 @pytest.mark.cuda
@@ -820,3 +809,39 @@ def test_cuda_marching_tetrahedra_match_cpu(cuda_device):
         gv, gf = compact_mesh(gt, gm)
         np.testing.assert_array_equal(gv, verts)
         np.testing.assert_array_equal(gf, faces)
+
+
+@pytest.fixture(scope="module")
+def scene512():
+    """The synthetic scene's three views at 512^2 (enough points for the
+    2-view driver's collapse bound), made once for the driver tests."""
+    from ssrlcv_tpu_torch.synthetic import make_scene
+
+    return make_scene(seed=0, size=512, n_views=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bench.reconstruct", "bench.profile_sift", "bench.match_kernel",
+                                  "bench.nview", "bench.pose", "bench.dense", "bench.scaling",
+                                  "tester"])
+def test_cuda_driver_prints_a_record_naming_the_card(name, cuda_device, scene512, capsys,
+                                                     tmp_path):
+    """Each measurement driver's main at 512^2 (the scene's drivers) or its
+    own size: its last line is its record, as JSON, naming the card, and
+    its kernels launched."""
+    import importlib
+    import inspect
+    import json
+
+    mod = importlib.import_module(f"ssrlcv_tpu_torch.{name}")
+    if "synthetic" in inspect.signature(mod.main).parameters:
+        argv = ["--size", "512"] + (["--reps", "1"] if name == "bench.reconstruct" else [])
+        argv += ["--out", str(tmp_path)] if name == "tester" else []
+        rec = mod.main(argv, synthetic=scene512)
+    else:
+        rec = mod.main(["--reps", "1"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last) == json.loads(json.dumps(rec))
+    assert rec["device"]["name"] == torch.cuda.get_device_name(0)
+    assert rec["device"]["power_limit_w"] > 0 and rec["device"]["count"] >= 1
+    assert sum(rec["launches"].values()) > 0

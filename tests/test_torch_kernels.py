@@ -279,7 +279,7 @@ def test_patch_row_sums_plain_matches_strat_h():
     pack."""
     from ssrlcv_tpu_torch.bench.gather_patches import make_inputs, pack, patch_row_sums
 
-    inp = make_inputs(seed=0, b=4, h=256, w=512, k=64)
+    inp = make_inputs(seed=0, b=4, h=256, w=512, k=64, device="cpu")
     np_in = {k: v.numpy() for k, v in inp.items()}
     assert set(np.unique(np_in["bi"])) == {1, 2}
     got = patch_row_sums(inp["packed"], inp["bi"], inp["cy"], inp["cx"], 33)
