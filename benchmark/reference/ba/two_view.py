@@ -1,0 +1,135 @@
+"""Two-view bundle adjustment.
+
+Counterpart of ``ssrlcv_tpu/ba/two_view.py``: steps on the 12-dim camera
+state (2 cameras x {pos, rot}) against the total linear error, with the
+exact gradient and Hessian from ``torch.func.grad`` / ``torch.func.hessian``
+and camera 0 pinned.  Modes:
+
+  * ``"lm"`` (the pipeline's): damped Levenberg-Marquardt steps;
+  * ``"newton"``: alpha-scaled Newton steps alpha * H^+ g through an SVD
+    pseudo-inverse (singular values <= svd_rcond * max clamped), with the
+    error-ratio alpha decay and the first failure's alpha / 100;
+  * ``"reference"``: the reference's shipped behaviour with its default
+    flags, which never applies an update: the error history is flat and the
+    cloud is the input cameras' triangulation.
+
+Every mode keeps the best parameters; once a step fails after the first
+iteration the state freezes (the reference leaves its loop).  The loop runs
+on tensors with no host synchronisation.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.func import grad, hessian
+
+from benchmark.reference.config import BAParams
+from benchmark.reference.core.types import Cameras, MatchSet, PointCloud
+from benchmark.reference.geometry.bundles import generate_bundles
+from benchmark.reference.geometry.triangulation import linear_error_objective, two_view_triangulate
+
+MODES = ("lm", "newton", "reference")
+
+
+def _apply_params(cameras: Cameras, params: torch.Tensor) -> Cameras:
+    """params: (N, 6) [pos(3), rot(3)] absolute camera state."""
+    return cameras.replace(cam_pos=params[:, 0:3], cam_rot=params[:, 3:6])
+
+
+def make_objective(matches: MatchSet, cameras: Cameras):
+    """Total linear error as a function of the flat (N*6,) camera state."""
+    n = cameras.num_cameras
+
+    def objective(p_flat: torch.Tensor) -> torch.Tensor:
+        cams = _apply_params(cameras, p_flat.reshape(n, 6))
+        return linear_error_objective(generate_bundles(matches, cams))
+
+    return objective
+
+
+class BAResult(NamedTuple):
+    cameras: Cameras
+    cloud: PointCloud
+    initial_error: torch.Tensor
+    final_error: torch.Tensor
+    error_history: torch.Tensor  # (iterations+1,)
+
+
+def bundle_adjust_two_view(matches: MatchSet, cameras: Cameras, iterations: int = 10,
+                           initial_alpha: float = 0.1, svd_rcond: float = 1e-6,
+                           mode: str = "lm", fix_camera0: bool = True) -> BAResult:
+    if mode not in MODES:
+        raise ValueError(f"bundle_adjust_two_view: mode must be one of {MODES}, got {mode!r}")
+    objective = make_objective(matches, cameras)
+    n_cams = cameras.num_cameras
+    params0 = torch.cat([cameras.cam_pos, cameras.cam_rot], dim=1).reshape(-1)
+    init_err = objective(params0)
+    hist = init_err.repeat(iterations + 1)
+    if mode == "reference":
+        cloud, _ = two_view_triangulate(generate_bundles(matches, cameras))
+        return BAResult(cameras, cloud, init_err, init_err, hist)
+
+    grad_fn = grad(objective)
+    hess_fn = hessian(objective)
+    dt, dev = params0.dtype, params0.device
+    free = torch.ones((n_cams, 6), dtype=dt, device=dev)
+    if fix_camera0:
+        free[0] = 0.0
+    free = free.reshape(-1)
+    pin = torch.diag(1.0 - free)
+    free2 = free[:, None] * free[None, :]
+
+    def lm_step(params, alpha, lam):
+        g = grad_fn(params) * free
+        H = hess_fn(params)
+        damped = H + lam * torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
+        # pin camera 0 rows/cols to identity so the solve is well-posed
+        damped = damped * free2 + pin
+        return params - torch.linalg.solve_ex(damped, g)[0] * free
+
+    def newton_step(params, alpha, lam):
+        g = grad_fn(params) * free
+        U, S, Vh = torch.linalg.svd(hess_fn(params), full_matrices=False)
+        s_inv = torch.where(S > svd_rcond * torch.max(S), 1.0 / S, 0.0)
+        step = (Vh.T * s_inv[None, :]) @ (U.T @ g)
+        return params - alpha * (step * free)
+
+    step_fn = lm_step if mode == "lm" else newton_step
+    best_params, best_err, prev_err = params0, init_err, init_err
+    alpha = torch.tensor(initial_alpha, dtype=dt, device=dev)
+    lam = torch.tensor(1e-3, dtype=dt, device=dev)
+    done = torch.tensor(False, device=dev)
+    for i in range(iterations):
+        new_params = step_fn(best_params, alpha, lam)
+        new_err = objective(new_params)
+        improved = new_err < best_err
+        live = ~done
+        take = improved & live
+        # alpha decays by the error ratio; a first-iteration failure divides
+        # it by 100; lambda adapts as in LM
+        ratio = torch.where(new_err > 0, prev_err / torch.clamp(new_err, min=1e-30), 1.0)
+        alpha2 = alpha / torch.clamp(ratio, min=1e-12) if i > 0 else alpha
+        alpha_new = torch.where(improved, alpha2, alpha / 100.0 if i == 0 else alpha)
+        best_params = torch.where(take, new_params, best_params)
+        best_err = torch.where(take, new_err, best_err)
+        prev_err = torch.where(take, new_err, prev_err)
+        alpha = torch.where(live, alpha_new, alpha)
+        lam = torch.where(live, torch.where(improved, lam * 0.3, lam * 10.0), lam)
+        hist[i + 1] = torch.where(live, best_err, hist[i + 1])
+        done = done | (~improved & (i > 0))
+
+    out_cams = _apply_params(cameras, best_params.reshape(n_cams, 6))
+    cloud, _ = two_view_triangulate(generate_bundles(matches, out_cams))
+    return BAResult(out_cams, cloud, init_err, best_err, hist)
+
+
+def bundle_adjust(matches: MatchSet, cameras: Cameras, params: BAParams,
+                  mode: str = "lm") -> BAResult:
+    """Config-driven entry point: iterations, alpha, rcond and the pinned
+    camera from ``params``."""
+    return bundle_adjust_two_view(matches, cameras, iterations=params.iterations,
+                                  initial_alpha=params.initial_alpha,
+                                  svd_rcond=params.svd_rcond, mode=mode,
+                                  fix_camera0=params.fixed_camera)
