@@ -782,7 +782,7 @@ def _cli_report(tag, rows, seconds, launches):
     error; returns (stage seconds, (BA initial, BA final))."""
     stages = json.loads(_log_value(rows, "stage seconds "))
     took = [text for tag_, text in rows if tag_ == "info" and " took " in text]
-    ba = tuple(float(x) for x in _log_value(rows, "bundle adjust: ").split("->"))
+    ba = tuple(float(x) for x in _log_value(rows, "bundle adjust: ").split("(")[0].split("->"))
     print(f"[{tag}] stages (s, CUDA events): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; host clock: {'; '.join(took)}; main() {seconds:.3f} s")

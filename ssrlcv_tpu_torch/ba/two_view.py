@@ -14,8 +14,12 @@ and camera 0 pinned.  Modes:
     cloud is the input cameras' triangulation.
 
 Every mode keeps the best parameters; once a step fails after the first
-iteration the state freezes (the reference leaves its loop).  The loop runs
-on tensors with no host synchronisation.
+iteration the state freezes (the reference leaves its loop); the loop goes
+on, and ``accepted`` counts the steps taken.  The loop runs on tensors with
+no host synchronisation.  Spans (``logger.span``): ``ba.setup``, each
+``ba.iteration`` with its ``ba.grad``, ``ba.hessian``, ``ba.solve`` and
+``ba.objective`` (the candidate's error), and ``ba.final`` (the last
+triangulation); none inside a function that ``torch.func`` transforms.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ssrlcv_tpu_torch.config import BAParams
 from ssrlcv_tpu_torch.core.types import Cameras, MatchSet, PointCloud
 from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
 from ssrlcv_tpu_torch.geometry.triangulation import linear_error_objective, two_view_triangulate
+from ssrlcv_tpu_torch.logging import logger
 
 MODES = ("lm", "newton", "reference")
 
@@ -55,6 +60,7 @@ class BAResult(NamedTuple):
     initial_error: torch.Tensor
     final_error: torch.Tensor
     error_history: torch.Tensor  # (iterations+1,)
+    accepted: torch.Tensor       # () int64: the steps taken
 
 
 def bundle_adjust_two_view(matches: MatchSet, cameras: Cameras, iterations: int = 10,
@@ -62,39 +68,49 @@ def bundle_adjust_two_view(matches: MatchSet, cameras: Cameras, iterations: int 
                            mode: str = "lm", fix_camera0: bool = True) -> BAResult:
     if mode not in MODES:
         raise ValueError(f"bundle_adjust_two_view: mode must be one of {MODES}, got {mode!r}")
-    objective = make_objective(matches, cameras)
-    n_cams = cameras.num_cameras
-    params0 = torch.cat([cameras.cam_pos, cameras.cam_rot], dim=1).reshape(-1)
-    init_err = objective(params0)
-    hist = init_err.repeat(iterations + 1)
+    with logger.span("ba.setup"):
+        objective = make_objective(matches, cameras)
+        n_cams = cameras.num_cameras
+        params0 = torch.cat([cameras.cam_pos, cameras.cam_rot], dim=1).reshape(-1)
+        init_err = objective(params0)
+        hist = init_err.repeat(iterations + 1)
+        dt, dev = params0.dtype, params0.device
+        accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        grad_fn = grad(objective)
+        hess_fn = hessian(objective)
+        free = torch.ones((n_cams, 6), dtype=dt, device=dev)
+        if fix_camera0:
+            free[0] = 0.0
+        free = free.reshape(-1)
+        pin = torch.diag(1.0 - free)
+        free2 = free[:, None] * free[None, :]
     if mode == "reference":
-        cloud, _ = two_view_triangulate(generate_bundles(matches, cameras))
-        return BAResult(cameras, cloud, init_err, init_err, hist)
+        with logger.span("ba.final"):
+            cloud, _ = two_view_triangulate(generate_bundles(matches, cameras))
+        return BAResult(cameras, cloud, init_err, init_err, hist, accepted)
 
-    grad_fn = grad(objective)
-    hess_fn = hessian(objective)
-    dt, dev = params0.dtype, params0.device
-    free = torch.ones((n_cams, 6), dtype=dt, device=dev)
-    if fix_camera0:
-        free[0] = 0.0
-    free = free.reshape(-1)
-    pin = torch.diag(1.0 - free)
-    free2 = free[:, None] * free[None, :]
+    def derivatives(params):
+        with logger.span("ba.grad"):
+            g = grad_fn(params) * free
+        with logger.span("ba.hessian"):
+            H = hess_fn(params)
+        return g, H
 
     def lm_step(params, alpha, lam):
-        g = grad_fn(params) * free
-        H = hess_fn(params)
-        damped = H + lam * torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
-        # pin camera 0 rows/cols to identity so the solve is well-posed
-        damped = damped * free2 + pin
-        return params - torch.linalg.solve_ex(damped, g)[0] * free
+        g, H = derivatives(params)
+        with logger.span("ba.solve"):
+            damped = H + lam * torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
+            # pin camera 0 rows/cols to identity so the solve is well-posed
+            damped = damped * free2 + pin
+            return params - torch.linalg.solve_ex(damped, g)[0] * free
 
     def newton_step(params, alpha, lam):
-        g = grad_fn(params) * free
-        U, S, Vh = torch.linalg.svd(hess_fn(params), full_matrices=False)
-        s_inv = torch.where(S > svd_rcond * torch.max(S), 1.0 / S, 0.0)
-        step = (Vh.T * s_inv[None, :]) @ (U.T @ g)
-        return params - alpha * (step * free)
+        g, H = derivatives(params)
+        with logger.span("ba.solve"):
+            U, S, Vh = torch.linalg.svd(H, full_matrices=False)
+            s_inv = torch.where(S > svd_rcond * torch.max(S), 1.0 / S, 0.0)
+            step = (Vh.T * s_inv[None, :]) @ (U.T @ g)
+            return params - alpha * (step * free)
 
     step_fn = lm_step if mode == "lm" else newton_step
     best_params, best_err, prev_err = params0, init_err, init_err
@@ -102,27 +118,31 @@ def bundle_adjust_two_view(matches: MatchSet, cameras: Cameras, iterations: int 
     lam = torch.tensor(1e-3, dtype=dt, device=dev)
     done = torch.tensor(False, device=dev)
     for i in range(iterations):
-        new_params = step_fn(best_params, alpha, lam)
-        new_err = objective(new_params)
-        improved = new_err < best_err
-        live = ~done
-        take = improved & live
-        # alpha decays by the error ratio; a first-iteration failure divides
-        # it by 100; lambda adapts as in LM
-        ratio = torch.where(new_err > 0, prev_err / torch.clamp(new_err, min=1e-30), 1.0)
-        alpha2 = alpha / torch.clamp(ratio, min=1e-12) if i > 0 else alpha
-        alpha_new = torch.where(improved, alpha2, alpha / 100.0 if i == 0 else alpha)
-        best_params = torch.where(take, new_params, best_params)
-        best_err = torch.where(take, new_err, best_err)
-        prev_err = torch.where(take, new_err, prev_err)
-        alpha = torch.where(live, alpha_new, alpha)
-        lam = torch.where(live, torch.where(improved, lam * 0.3, lam * 10.0), lam)
-        hist[i + 1] = torch.where(live, best_err, hist[i + 1])
-        done = done | (~improved & (i > 0))
+        with logger.span("ba.iteration"):
+            new_params = step_fn(best_params, alpha, lam)
+            with logger.span("ba.objective"):
+                new_err = objective(new_params)
+            improved = new_err < best_err
+            live = ~done
+            take = improved & live
+            # alpha decays by the error ratio; a first-iteration failure
+            # divides it by 100; lambda adapts as in LM
+            ratio = torch.where(new_err > 0, prev_err / torch.clamp(new_err, min=1e-30), 1.0)
+            alpha2 = alpha / torch.clamp(ratio, min=1e-12) if i > 0 else alpha
+            alpha_new = torch.where(improved, alpha2, alpha / 100.0 if i == 0 else alpha)
+            best_params = torch.where(take, new_params, best_params)
+            best_err = torch.where(take, new_err, best_err)
+            prev_err = torch.where(take, new_err, prev_err)
+            accepted += take
+            alpha = torch.where(live, alpha_new, alpha)
+            lam = torch.where(live, torch.where(improved, lam * 0.3, lam * 10.0), lam)
+            hist[i + 1] = torch.where(live, best_err, hist[i + 1])
+            done = done | (~improved & (i > 0))
 
-    out_cams = _apply_params(cameras, best_params.reshape(n_cams, 6))
-    cloud, _ = two_view_triangulate(generate_bundles(matches, out_cams))
-    return BAResult(out_cams, cloud, init_err, best_err, hist)
+    with logger.span("ba.final"):
+        out_cams = _apply_params(cameras, best_params.reshape(n_cams, 6))
+        cloud, _ = two_view_triangulate(generate_bundles(matches, out_cams))
+    return BAResult(out_cams, cloud, init_err, best_err, hist, accepted)
 
 
 def bundle_adjust(matches: MatchSet, cameras: Cameras, params: BAParams,

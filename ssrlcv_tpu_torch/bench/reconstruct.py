@@ -9,16 +9,14 @@ linear cutoff (100) and statistical filter (3 sigma, every 10th) -> BA (LM,
 the least of those host times, each to a final ``synchronize``.  Two more
 runs synchronise after every stage for its seconds (the first pays the
 extra synchronisations' one-time costs), then ``extra_metrics``.  Prints one
-JSON record as the last line, with bench.py's fields plus the list of
-runs, the device and the scene.
+JSON record as the last line, with bench.py's fields (but ``vs_baseline``,
+a budget rather than a measurement) plus the list of runs, the device and
+the scene.
 
 The scene is the synthetic one (``bench.scene``) unless ``--fixture`` names
 the reference's ``test/checkpoints/Pipeline2View`` layout; the distance of
 the filtered cloud to the truth is then ``cloud_vs_golden_m`` (to the
 golden ``points0``), else ``cloud_vs_surface_m``.
-
-``vs_baseline`` keeps bench.py's base: the reference's CI budget for the
-same 2-view run, a 30-minute limit on a K40 (2 frames / 1800 s).
 """
 
 from __future__ import annotations
@@ -33,7 +31,6 @@ import torch
 from ssrlcv_tpu_torch.bench import scene as S
 from ssrlcv_tpu_torch.config import MatchParams, SIFTParams
 
-BASELINE_FPS = 2.0 / 1800.0  # the reference's CI budget: 2-view e2e in 30 min on a K40
 MIN_POINTS = 1000            # bench.py's reconstruction-collapse bound
 
 
@@ -164,8 +161,6 @@ def main(argv=None, synthetic=None) -> dict:
     elapsed = min(runs)
     fps = 2.0 / elapsed
     out = {"metric": "reconstruction_fps", "value": fps, "unit": "frames/s",
-           "vs_baseline": fps / BASELINE_FPS,
-           "baseline_kind": "ci_budget_upper_bound (lower bound of true speedup)",
            "e2e_seconds": elapsed, "e2e_seconds_runs": runs, "reps": args.reps,
            "points": n_points, "ba_initial_error": float(arts[5].initial_error),
            "ba_final_error": final_err, "ba_error_per_point": final_err / max(n_points, 1),

@@ -100,30 +100,41 @@ def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int
     "grads_s")`` with its gradient planes (gx, gy); per blur bucket ``b``
     ``(o, b, "compact_s")`` with its compacted keypoints and ``(o, b,
     "describe_s")`` with ``_describe_bucket``'s result; last
-    ``("aggregate_s",)`` with the FeatureSet (``bench.profile_sift``)."""
-    params = params or SIFTParams()
-    mark = mark or _no_mark
+    ``("aggregate_s",)`` with the FeatureSet (``bench.profile_sift``).
+
+    The call is the span ``sift``, with ``sift.scale_space``, then per
+    octave ``sift.detect`` and ``sift.describe`` (gradients, bucket
+    compaction, K1, K2) inside it, at the same boundaries as ``mark``."""
+    with logger.span("sift"):
+        return _generate_features(pixels, params or SIFTParams(), image_id, device,
+                                  mark or _no_mark)
+
+
+def _generate_features(pixels, params: SIFTParams, image_id: int, device, mark) -> FeatureSet:
     px = as_device_tensor(pixels, device)
     device = px.device
     if px.ndim == 3:
         px = ops.to_bw(px)
     h, w = int(px.shape[0]), int(px.shape[1])
 
-    octaves = ss.build_scale_space(px, params, h, w)
+    with logger.span("sift.scale_space"):
+        octaves = ss.build_scale_space(px, params, h, w)
     mark(("scale_space_s",), octaves)
     parts = []
     for o, octave in enumerate(octaves):
         pixel_width = float(2.0 ** (params.starting_octave + o))
-        kps = detect_octave(octave, params, o, h, w)
+        with logger.span("sift.detect"):
+            kps = detect_octave(octave, params, o, h, w)
         mark((o, "detect_s"), kps)
-        gx, gy = ops.pixel_gradients(octave.dog_norm)
-        mark((o, "grads_s"), (gx, gy))
-        for b in _describe_buckets(params):
-            sel = _bucket_keypoints(kps, b)
-            mark((o, b, "compact_s"), sel)
-            described = _describe_bucket(sel, gx[b], gy[b], params, b, pixel_width)
-            mark((o, b, "describe_s"), described)
-            parts.append(described[1])
+        with logger.span("sift.describe"):
+            gx, gy = ops.pixel_gradients(octave.dog_norm)
+            mark((o, "grads_s"), (gx, gy))
+            for b in _describe_buckets(params):
+                sel = _bucket_keypoints(kps, b)
+                mark((o, b, "compact_s"), sel)
+                described = _describe_bucket(sel, gx[b], gy[b], params, b, pixel_width)
+                mark((o, b, "describe_s"), described)
+                parts.append(described[1])
 
     loc = torch.cat([p[0] for p in parts])
     sigma = torch.cat([p[1] for p in parts])

@@ -5,9 +5,18 @@ reference Logger (Logger.hpp:30-339, Logger.cpp): CSV rows
 ``<epoch-ms>,<tag>,<payload>`` with tags comment/state/info/warning/error,
 ``log_state`` begin/end timeline markers for offline phase timing, a
 background heartbeat thread, and memory accounting.  Device memory comes
-from ``torch.cuda.memory_stats`` per visible CUDA device; phase tracing
-can add a ``torch.profiler.record_function`` range, as the JAX logger adds
-a ``jax.profiler`` trace annotation.  The rows are the JAX logger's.
+from ``torch.cuda.memory_stats`` per visible CUDA device.  The rows are the
+JAX logger's.
+
+Spans (``Logger.span``) mark the program's layers on a profiler's
+timeline and write no row.  A span is off unless ``torch.profiler`` is
+recording or a listener is registered; off, it costs one check.  While the
+profiler records, a span is a ``torch.profiler.record_function`` range named
+``stage.<name>``, on the clock of the device trace, so every gap in the
+device's work can be put down to the innermost span the host was in; its
+parent is the span around it, and its job the outermost range.  Listeners
+(``add_span_listener``) are called as ``fn(range_name, begin)`` when a span
+begins and ends, in nesting order.
 """
 
 from __future__ import annotations
@@ -15,8 +24,10 @@ from __future__ import annotations
 import os
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional
+
+import torch
 
 _LEVELS = {"error": 1, "warning": 2, "info": 3, "debug": 4}
 
@@ -32,6 +43,7 @@ class Logger:
         self._file = None
         self._bg_thread: Optional[threading.Thread] = None
         self._bg_stop = threading.Event()
+        self._span_listeners: tuple = ()
 
     def _write(self, tag: str, payload: str):
         with self._lock:
@@ -62,21 +74,32 @@ class Logger:
         self._write("state", state)
 
     @contextmanager
-    def phase(self, name: str, profile: bool = False):
-        """state begin/end pair and an info row with the host seconds; with
-        ``profile`` the block is also a ``torch.profiler`` range."""
+    def phase(self, name: str):
+        """state begin/end pair and an info row with the host seconds; the
+        block is also a span."""
         self.log_state(f"{name}:begin")
         t0 = time.perf_counter()
-        if profile:
-            import torch.profiler
-
-            with torch.profiler.record_function(name):
-                yield
-        else:
+        with self.span(name):
             yield
         dt = time.perf_counter() - t0
         self.log_state(f"{name}:end")
         self.info(f"{name} took {dt:.3f}s")
+
+    def span(self, name: str):
+        """A context manager over one of the program's layers: the profiler
+        range ``stage.<name>`` while the profiler records, and a call of
+        every listener at its begin and end; nothing otherwise."""
+        if self._span_listeners or _profiler_enabled():
+            return _Span("stage." + name, self._span_listeners)
+        return _OFF
+
+    def add_span_listener(self, fn):
+        """Call ``fn(range_name, begin)`` at every span's begin (True) and
+        end (False)."""
+        self._span_listeners = self._span_listeners + (fn,)
+
+    def remove_span_listener(self, fn):
+        self._span_listeners = tuple(f for f in self._span_listeners if f is not fn)
 
     def log_device_memory(self):
         """Device memory accounting (the LOG_MEM analogue,
@@ -120,6 +143,34 @@ class Logger:
             if self._file is not None:
                 self._file.close()
                 self._file = None
+
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = nullcontext()
+
+
+class _Span:
+    """An open span: its profiler range (while the profiler records) and
+    the listeners it tells."""
+
+    __slots__ = ("name", "listeners", "range")
+
+    def __init__(self, name: str, listeners: tuple):
+        self.name, self.listeners, self.range = name, listeners, None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        for fn in self.listeners:
+            fn(self.name, True)
+
+    def __exit__(self, *exc):
+        for fn in reversed(self.listeners):
+            fn(self.name, False)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
 
 
 # Global logger instance (the reference exposes a global ``logger``,

@@ -28,6 +28,7 @@ import torch
 from ssrlcv_tpu_torch.config import MatchParams
 from ssrlcv_tpu_torch.core import camera_math
 from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet, MatchSet
+from ssrlcv_tpu_torch.logging import logger
 from ssrlcv_tpu_torch.matching.distance import best_target_chunked
 from ssrlcv_tpu_torch.matching.match_kernel import best_target, epipolar_segment_mask
 
@@ -61,13 +62,14 @@ def seed_distances(features: FeatureSet, seed: FeatureSet, chunk: int = 1024,
     pass for squared L2 on 128-wide descriptors (+inf for the slots outside
     the features' mask, which K3 does not answer), the chunked plain pass
     otherwise."""
-    if metric == "l2sq" and features.descriptors.shape[1] == 128:
-        inf2 = _unconstrained(features.capacity, features.loc.device)
-        _, dist = best_target(features.descriptors, seed.descriptors, seed.loc.contiguous(),
-                              inf2, inf2, 0.0, seed.mask, q_valid=features.mask)
-        return dist
-    return best_target_chunked(features.descriptors, seed.descriptors, seed.mask, chunk=chunk,
-                               metric=metric)[1]
+    with logger.span("match.seed_distances"):
+        if metric == "l2sq" and features.descriptors.shape[1] == 128:
+            inf2 = _unconstrained(features.capacity, features.loc.device)
+            _, dist = best_target(features.descriptors, seed.descriptors, seed.loc.contiguous(),
+                                  inf2, inf2, 0.0, seed.mask, q_valid=features.mask)
+            return dist
+        return best_target_chunked(features.descriptors, seed.descriptors, seed.mask, chunk=chunk,
+                                   metric=metric)[1]
 
 
 def _threshold(idx, dist, q_mask, params: MatchParams, seed_dist,
@@ -91,23 +93,24 @@ def match_double_constrained(query: FeatureSet, target: FeatureSet, cameras: Cam
     CUDA device, chunked otherwise).  metric: 'l2sq' (SIFT) or 'sad'
     (Window_NxN).  index_only: the unsquared relative-seed threshold of the
     index-only kernel family, which the N-view pair sweep uses."""
-    qi, ti = query_index, target_index
-    P = camera_math.projection_matrix(
-        cameras.cam_pos[ti], cameras.cam_rot[ti], cameras.foc[ti],
-        cameras.dpix[ti], cameras.size[ti], cameras.ecef_offset[ti])
-    p1, p2 = camera_math.epipolar_segment_endpoints(
-        query.loc, cameras.cam_pos[qi], cameras.cam_rot[qi], cameras.foc[qi],
-        cameras.dpix[qi], cameras.size[qi], cameras.ecef_offset[qi], P, params.delta)
-    if _use_kernel(query, metric, backend):
-        idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
-                                p1.contiguous(), p2.contiguous(), params.epsilon, target.mask,
-                                q_valid=query.mask)
-    else:
-        idx, dist = best_target_chunked(
-            query.descriptors, target.descriptors, target.mask,
-            mask_fn=lambda a, b: epipolar_segment_mask(a, b, target.loc, params.epsilon),
-            mask_aux=(p1, p2), chunk=chunk, metric=metric)
-    return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
+    with logger.span("match.double"):
+        qi, ti = query_index, target_index
+        P = camera_math.projection_matrix(
+            cameras.cam_pos[ti], cameras.cam_rot[ti], cameras.foc[ti],
+            cameras.dpix[ti], cameras.size[ti], cameras.ecef_offset[ti])
+        p1, p2 = camera_math.epipolar_segment_endpoints(
+            query.loc, cameras.cam_pos[qi], cameras.cam_rot[qi], cameras.foc[qi],
+            cameras.dpix[qi], cameras.size[qi], cameras.ecef_offset[qi], P, params.delta)
+        if _use_kernel(query, metric, backend):
+            idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
+                                    p1.contiguous(), p2.contiguous(), params.epsilon, target.mask,
+                                    q_valid=query.mask)
+        else:
+            idx, dist = best_target_chunked(
+                query.descriptors, target.descriptors, target.mask,
+                mask_fn=lambda a, b: epipolar_segment_mask(a, b, target.loc, params.epsilon),
+                mask_aux=(p1, p2), chunk=chunk, metric=metric)
+        return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
 
 
 def match_brute_force(query: FeatureSet, target: FeatureSet, params: MatchParams,
@@ -119,14 +122,15 @@ def match_brute_force(query: FeatureSet, target: FeatureSet, params: MatchParams
     or 'auto' (K3 for squared L2 on 128-wide descriptors on a CUDA device,
     chunked otherwise).  index_only: the unsquared relative-seed
     threshold."""
-    if _use_kernel(query, metric, backend):
-        inf2 = _unconstrained(query.capacity, query.loc.device)
-        idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
-                                inf2, inf2, 0.0, target.mask, q_valid=query.mask)
-    else:
-        idx, dist = best_target_chunked(query.descriptors, target.descriptors, target.mask,
-                                        chunk=chunk, metric=metric)
-    return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
+    with logger.span("match.brute"):
+        if _use_kernel(query, metric, backend):
+            inf2 = _unconstrained(query.capacity, query.loc.device)
+            idx, dist = best_target(query.descriptors, target.descriptors, target.loc.contiguous(),
+                                    inf2, inf2, 0.0, target.mask, q_valid=query.mask)
+        else:
+            idx, dist = best_target_chunked(query.descriptors, target.descriptors, target.mask,
+                                            chunk=chunk, metric=metric)
+        return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
 
 
 def _fmatrix_mask(q_loc, F, t_loc, epsilon: float) -> torch.Tensor:

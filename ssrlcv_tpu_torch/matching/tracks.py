@@ -14,6 +14,10 @@ quirks:
   * tracks are rooted only at query images 0..n-3 (the reference's loop
     guard ``i < images.size() - 2``);
   * consumed adjacency lists are cleared, so no keypoint is in two tracks.
+
+Spans (``logger.span``): ``tracks.sweep`` (the windowed pair sweep), each
+``tracks.fetch`` (a host read of a pair's matches), ``tracks.build`` (the
+track assembly, a logged phase) and ``tracks.assemble`` (the MatchSet).
 """
 
 from __future__ import annotations
@@ -77,7 +81,8 @@ def pairwise_index_matches(features: list, cameras: Cameras, params: MatchParams
         return M.match_brute_force(features[i], features[j], params, seed_dist=state["sd"],
                                    index_only=True)
 
-    local = windowed_pair_sweep(mine, dispatch, DISPATCH_WINDOW)
+    with logger.span("tracks.sweep"):
+        local = windowed_pair_sweep(mine, dispatch, DISPATCH_WINDOW)
     if mesh is None:
         return local
     from ssrlcv_tpu_torch.parallel.sharded import _allgather_pair_matches
@@ -95,11 +100,12 @@ def windowed_pair_sweep(pairs: list, dispatch, window: int) -> dict:
     dms, out = {}, {}
 
     def fetch(key):
-        dm = dms.pop(key)
-        valid = dm.valid.cpu().numpy()
-        qf = np.nonzero(valid)[0]
-        tf = dm.target_idx.cpu().numpy()[qf]
-        out[key] = np.stack([qf, tf], axis=1).astype(np.int64)
+        with logger.span("tracks.fetch"):
+            dm = dms.pop(key)
+            valid = dm.valid.cpu().numpy()
+            qf = np.nonzero(valid)[0]
+            tf = dm.target_idx.cpu().numpy()[qf]
+            out[key] = np.stack([qf, tf], axis=1).astype(np.int64)
 
     for k, ij in enumerate(pairs):
         dms[ij] = dispatch(k, ij)
@@ -182,9 +188,14 @@ def generate_matches_exhaustive(features: list, cameras: Cameras, params: MatchP
     pair_matches = pairwise_index_matches(features, cameras, params, seed_features,
                                           ordered=ordered, estimated_overlap=estimated_overlap,
                                           mesh=mesh)
-    with logger.phase("build_tracks"):
+    with logger.phase("tracks.build"):
         tracks = build_tracks(pair_matches, len(features), [f.capacity for f in features])
+    with logger.span("tracks.assemble"):
+        return _matchset(tracks, features)
 
+
+def _matchset(tracks: list, features: list) -> MatchSet:
+    """The tracks as a padded MatchSet on the features' device."""
     locs = [f.loc.cpu().numpy() for f in features]
     t = len(tracks)
     v = max((len(tr) for tr in tracks), default=2)

@@ -281,6 +281,7 @@ def sharded_bundle_adjust(mesh, matches: MatchSet, cameras: Cameras, iterations:
     best, best_err = p0, init_err
     lam = torch.tensor(initial_lambda, dtype=p0.dtype, device=p0.device)
     done = torch.tensor(False, device=p0.device)
+    accepted = torch.zeros((), dtype=torch.int64, device=p0.device)
     m = p0.shape[0]
     for i in range(iterations):
         # the gradient and Hessian summed over data in one all-reduce
@@ -293,10 +294,11 @@ def sharded_bundle_adjust(mesh, matches: MatchSet, cameras: Cameras, iterations:
         take = improved & live
         best = torch.where(take, new, best)
         best_err = torch.where(take, new_err, best_err)
+        accepted += take
         lam = torch.where(live, torch.where(improved, lam * 0.3, lam * 10.0), lam)
         hist[i + 1] = torch.where(live, best_err, hist[i + 1])
         done = done | (~improved & (i > 0))
 
     out_cams = _apply_params(cameras, best.reshape(n_cams, 6))
     cloud, _ = sharded_triangulate(mesh, matches, out_cams)
-    return BAResult(out_cams, cloud, init_err, best_err, hist)
+    return BAResult(out_cams, cloud, init_err, best_err, hist, accepted)

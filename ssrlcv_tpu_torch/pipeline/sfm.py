@@ -112,7 +112,8 @@ def _logged(args: argparse.Namespace, device: torch.device, backend: str) -> int
 
     previous = signal.signal(signal.SIGINT, safe_shutdown)
     try:
-        return _run(args, device, backend)
+        with logger.span("sfm"):  # the run: the job of every span inside it
+            return _run(args, device, backend)
     finally:
         signal.signal(signal.SIGINT, previous)
         logger.log_state("end")

@@ -181,8 +181,9 @@ def do_triangulation(state: PipelineState) -> PipelineState:
 
         pc, err = sharded_triangulate(state.mesh, state.matches, state.cameras)
     else:
-        pc, err = triangulate_matches(state.matches, state.cameras, _two_view(state),
-                                      pushbrooms=state.pushbrooms)
+        with logger.span("geometry.triangulate"):
+            pc, err = triangulate_matches(state.matches, state.cameras, _two_view(state),
+                                          pushbrooms=state.pushbrooms)
     state.cloud = pc
     logger.info(f"initial cloud: {int(pc.mask.sum())} points, error {float(err):.6f}")
     _write_cloud(state, "ssrlcv-initial")
@@ -198,14 +199,16 @@ def do_filtering(state: PipelineState) -> PipelineState:
     cfg = state.config.filter
     two_view = _two_view(state)
     ms = state.matches
-    if two_view:
-        ms = F.linear_cutoff_filter(ms, state.cameras, cfg.linear_cutoff_km,
-                                    pushbrooms=state.pushbrooms)
-    jump = max(int(round(1.0 / cfg.sample_fraction)), 1)
-    ms = F.deterministic_statistical_filter(ms, state.cameras, cfg.statistical_sigma, jump,
-                                            two_view=two_view, pushbrooms=state.pushbrooms)
+    with logger.span("geometry.filter"):
+        if two_view:
+            ms = F.linear_cutoff_filter(ms, state.cameras, cfg.linear_cutoff_km,
+                                        pushbrooms=state.pushbrooms)
+        jump = max(int(round(1.0 / cfg.sample_fraction)), 1)
+        ms = F.deterministic_statistical_filter(ms, state.cameras, cfg.statistical_sigma, jump,
+                                                two_view=two_view, pushbrooms=state.pushbrooms)
     state.matches = ms
-    pc, err = triangulate_matches(ms, state.cameras, two_view, pushbrooms=state.pushbrooms)
+    with logger.span("geometry.triangulate"):
+        pc, err = triangulate_matches(ms, state.cameras, two_view, pushbrooms=state.pushbrooms)
     state.cloud = pc
     logger.info(f"filtered cloud: {int(pc.mask.sum())} points, error {float(err):.6f}")
     _write_cloud(state, "ssrlcv-filtered")
@@ -234,16 +237,29 @@ def do_bundle_adjust(state: PipelineState) -> PipelineState:
         result = bundle_adjust_nview(state.matches, state.cameras, state.config.ba)
     state.cameras = result.cameras
     state.cloud = result.cloud
-    state.ba_error = (float(result.initial_error), float(result.final_error))
-    logger.info(f"bundle adjust: {state.ba_error[0]!r} -> {state.ba_error[1]!r}")
+    # the errors and the accepted steps in one read from the device
+    e0, e1, accepted = torch.stack([result.initial_error, result.final_error,
+                                    result.accepted.to(result.final_error.dtype)]).tolist()
+    state.ba_error = (e0, e1)
+    iterations = state.config.ba.iterations
+    do_bundle_adjust.iterations += iterations
+    do_bundle_adjust.accepted += int(accepted)
+    logger.info(f"bundle adjust: {e0!r} -> {e1!r} "
+                f"({int(accepted)} of {iterations} steps accepted)")
     _write_cloud(state, "ssrlcv-BA-final")
     return state
 
 
+# LM iterations run and steps accepted by every do_bundle_adjust call
+do_bundle_adjust.iterations = 0
+do_bundle_adjust.accepted = 0
+
+
 def _write_cloud(state: PipelineState, name: str):
-    pts = state.cloud.compact()
-    path = os.path.join(state.config.output_dir, name)
-    ply.write_ply(path, pts)
+    with logger.span("io.write_ply"):
+        pts = state.cloud.compact()
+        path = os.path.join(state.config.output_dir, name)
+        ply.write_ply(path, pts)
     logger.info(f"wrote {path}.ply ({len(pts)} points)")
 
 
@@ -270,7 +286,8 @@ def run_pipeline(state: PipelineState, device=None) -> PipelineState:
     stage that runs puts its seconds in ``state.stage_seconds`` (the pose
     stage only when it estimates a pose): on a CUDA device from CUDA events
     read after one synchronisation at the end, so the stages run without
-    added synchronisation."""
+    added synchronisation.  Each stage is also a span of its name
+    (``logger.span``)."""
     if device is not None:
         state.device = resolve_device(device)
     root = state.config.checkpoint_dir
@@ -283,19 +300,20 @@ def run_pipeline(state: PipelineState, device=None) -> PipelineState:
     for i in range(start, NUM_STAGES):
         name, fn = STAGES[i]
         logger.log_state(f"stage{i}:{name}:begin")
-        if i == STAGE_POSE and not _pose_runs(state):
-            state = fn(state)
-        elif cuda:
-            start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            stream = torch.cuda.current_stream(state.device)
-            start_ev.record(stream)
-            state = fn(state)
-            end_ev.record(stream)
-            marks.append((name, start_ev, end_ev))
-        else:
-            t0 = time.perf_counter()
-            state = fn(state)
-            state.stage_seconds[name] = time.perf_counter() - t0
+        with logger.span(name):
+            if i == STAGE_POSE and not _pose_runs(state):
+                state = fn(state)
+            elif cuda:
+                start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                stream = torch.cuda.current_stream(state.device)
+                start_ev.record(stream)
+                state = fn(state)
+                end_ev.record(stream)
+                marks.append((name, start_ev, end_ev))
+            else:
+                t0 = time.perf_counter()
+                state = fn(state)
+                state.stage_seconds[name] = time.perf_counter() - t0
         logger.log_state(f"stage{i}:{name}:end")
         if root:
             _checkpoint(state, root, i)

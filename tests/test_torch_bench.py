@@ -8,6 +8,7 @@ of tests/test_torch_slice.py and ROADMAP.md section 3.  Their entry points
 stop without a CUDA device.
 """
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -38,7 +39,9 @@ def _rows(path):
         return [tuple(line.rstrip("\n").split(",", 2)[1:]) for line in f]
 
 
-def _drive_logger(logger):
+def _drive_logger(logger, traced_phase):
+    """The call sequence; ``traced_phase(logger)`` opens the phase "traced"
+    on the package's profiler."""
     logger.info("one")
     logger.comment("a comment, with a comma\nand a newline")
     logger.log_state("start")
@@ -46,7 +49,7 @@ def _drive_logger(logger):
     logger.err("three")
     with logger.phase("plain"):
         pass
-    with logger.phase("traced", profile=True):
+    with traced_phase(logger):
         pass
     logger.log_device_memory()
     logger.start_background_logging(0.02)
@@ -63,16 +66,30 @@ def _drive_logger(logger):
     return [r for r in rows if r != ("comment", "heartbeat") and " took " not in r[1]], rows
 
 
+@contextlib.contextmanager
+def _profiled_phase(logger):
+    """The port's phase "traced" under torch.profiler: a span, so the
+    profiler's one range is "stage.traced"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with logger.phase("traced"):
+            yield
+    assert [e.name for e in prof.events() if e.is_user_annotation] == ["stage.traced"]
+
+
 @pytest.mark.parametrize("level", ["info", "error"])
 def test_logger_rows_match_jax(tmp_path, level):
     """One call sequence through both loggers: the same rows (tags and
     payloads) but for the timestamps, the heartbeats (at least one each,
-    none after the stop) and the phases' host seconds."""
+    none after the stop) and the phases' host seconds; a phase traced on
+    each package's profiler writes the rows of any other phase."""
     from ssrlcv_tpu.logging import Logger as JLogger
     from ssrlcv_tpu_torch.logging import Logger as TLogger
 
-    want, jrows = _drive_logger(JLogger(str(tmp_path / "jax"), level=level))
-    got, trows = _drive_logger(TLogger(str(tmp_path / "torch"), level=level))
+    want, jrows = _drive_logger(JLogger(str(tmp_path / "jax"), level=level),
+                                lambda lg: lg.phase("traced", profile=True))
+    got, trows = _drive_logger(TLogger(str(tmp_path / "torch"), level=level), _profiled_phase)
     assert got == want
     assert [t for t, _ in trows if t != "comment"] == [t for t, _ in jrows if t != "comment"]
     assert ("state", "traced:begin") in got and ("comment", "a comment, with a comma and a "

@@ -220,6 +220,12 @@ def _log(root, pkg="torch"):
         return f.read()
 
 
+def _ba_errors(line):
+    """(initial, final) of a "bundle adjust: a -> b" row; the port's row
+    goes on with the steps accepted in brackets."""
+    return tuple(float(x) for x in line.split(":", 1)[1].split("(")[0].split("->"))
+
+
 @pytest.mark.parametrize("case", ["three_views", "two_views_pose"])
 def test_cli_matches_jax(cli_runs, scene3, case, monkeypatch):
     """Point counts of the three PLYs within 1 %; the initial and filtered
@@ -244,9 +250,9 @@ def test_cli_matches_jax(cli_runs, scene3, case, monkeypatch):
 
     log = _log(root)
     ba = [line for line in log.splitlines() if ",bundle adjust:" in line][-1]
-    e0, e1 = (float(x) for x in ba.split(":", 1)[1].split("->"))
+    e0, e1 = _ba_errors(ba)
     jba = [line for line in _log(root, "jax").splitlines() if ",bundle adjust:" in line][-1]
-    j0, j1 = (float(x) for x in jba.split(":", 1)[1].split("->"))
+    j0, j1 = _ba_errors(jba)
     assert e1 <= e0 and e0 == pytest.approx(j0, rel=5e-2) and e1 == pytest.approx(j1, rel=5e-2)
     stages = '"pose"' in [line for line in log.splitlines() if "stage seconds" in line][-1]
     assert stages == pose
@@ -346,8 +352,7 @@ def test_cli_mesh_matches_jax(scene3, tmp_path, monkeypatch):
             assert np.median(cKDTree(j).query(t)[0]) <= 1e-3, name
         np.testing.assert_allclose(t, _cloud(tmp_path, "torch_single", name), rtol=2e-6,
                                    atol=1e-4, err_msg=name)
-    e = [[float(x) for x in line.split(":", 1)[1].split("->")]
-         for pkg in ("torch", "jax") for line in _log(tmp_path, pkg).splitlines()
+    e = [_ba_errors(line) for pkg in ("torch", "jax") for line in _log(tmp_path, pkg).splitlines()
          if ",bundle adjust:" in line]
     assert e[0][1] <= e[0][0] and e[0][1] == pytest.approx(e[1][1], rel=5e-2)
 
