@@ -15,7 +15,9 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
      65536 capacity, both the unconstrained seed pass and the constrained
      match, and K4 (the tensor-core best target) on the same passes against
      K3 and its plain version; K6 at the patch-gather benchmark's shapes
-     (ssrlcv_tpu_torch.bench.gather_patches); tolerances below;
+     (ssrlcv_tpu_torch.bench.gather_patches); the blur kernel
+     (csrc/blur.cu) over octave 0's blur chain of image 0 (2048^2, the six
+     tap counts), bit-identical to its plain version; tolerances below;
   3. the 2-view main path through ssrlcv_tpu_torch.pipeline.stages on
      cuda:0 (seed SIFT + run_pipeline), with per-stage CUDA-event times, the
      reconstruction's own checks (points, BA error, distance to the scene's
@@ -376,6 +378,45 @@ def phase_kernels_features(scene, dev):
     }
 
 
+def phase_kernels_blur(scene, dev):
+    """The blur kernel against its plain version over octave 0's blur chain
+    of image 0: each blur's input is the previous blur's output, as in
+    build_scale_space.  Returns its record."""
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features import scale_space as ss
+    from ssrlcv_tpu_torch.ops import image_ops as ops
+
+    params = SIFTParams()
+    cur = ops.upsample2x(ops.to_float(torch.as_tensor(scene.images[0].pixels, device=dev)))
+    pw = 2.0 ** params.starting_octave
+    rec = {"ms": 0.0, "plain_ms": 0.0, "io": 0, "by_taps": {}}
+    for sigma in ss.octave_sigmas(params, 0):
+        taps = ops.gaussian_kernel_1d(sigma, pw, params.kernel_size[0])
+        x = cur
+        same, (cur,) = _same_twice(lambda: (ops.convolve_separable_symmetric(x, taps),))
+        if not same:
+            fail(f"the blur kernel is not deterministic ({len(taps)} taps)")
+        if not torch.equal(cur, ops.convolve_separable_symmetric_plain(x, taps)):
+            fail(f"the blur kernel differs from its plain version ({len(taps)} taps)")
+        ms = cuda_ms(lambda: ops.convolve_separable_symmetric(x, taps), 20, "blur")
+        plain_ms = cuda_ms(lambda: ops.convolve_separable_symmetric_plain(x, taps), 2,
+                           "blur plain")
+        io = 4 * _nbytes(x)  # each pass reads and writes the plane once
+        rec["by_taps"][len(taps)] = {"ms": ms, "plain_ms": plain_ms,
+                                     **bound(io, 0, "fp32")}
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["io"] += io
+    b = bound(rec.pop("io"), 0, "fp32")
+    print(f"[kernels] blur: octave 0 chain on a {tuple(cur.shape)} plane, bit-identical; "
+          f"{rec['ms']:.4f} ms (device) vs plain {rec['plain_ms']:.3f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); by tap count "
+          + ", ".join(f"{k}: {v['ms']:.4f} / {v['bound_ms']:.4f} / {v['plain_ms']:.3f} ms"
+                      for k, v in rec["by_taps"].items()))
+    return {"convolve_separable_symmetric": {"max_abs_err": 0.0, **rec, **b,
+                                             "library_ms": None}}
+
+
 def _check_k4(name, k4, k3, plain):
     """K4 against K3 on the queries K3 answers, (0, 3.0e38) on the others,
     and bit-identical to its plain version.  Returns the unanswered count."""
@@ -593,12 +634,14 @@ def phase_main_path(scene, dev):
     from ssrlcv_tpu_torch.features.sift import generate_features
     from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
     from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.ops.image_ops import convolve_separable_symmetric
     from ssrlcv_tpu_torch.pipeline import stages as S
 
     out_dir = os.path.join("out", "chip_smoke")
     cfg = PipelineConfig(output_dir=out_dir).replace(
         match=MatchParams(epsilon=25.0, delta=5.0), sift=SIFTParams())
-    counters = (orientation_histograms, descriptor_histograms, best_target)
+    counters = (orientation_histograms, descriptor_histograms, best_target,
+                convolve_separable_symmetric)
     for fn in counters:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1830,10 +1873,12 @@ def main():
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
     from ssrlcv_tpu_torch.matching.match_kernel import best_target
+    from ssrlcv_tpu_torch.ops.image_ops import convolve_separable_symmetric
 
-    counters = (orientation_histograms, descriptor_histograms, best_target)
-    recs = {**phase_kernels_features(scene, dev), **phase_kernels_match(scene, dev),
-            **phase_gather(dev)}
+    counters = (orientation_histograms, descriptor_histograms, best_target,
+                convolve_separable_symmetric)
+    recs = {**phase_kernels_features(scene, dev), **phase_kernels_blur(scene, dev),
+            **phase_kernels_match(scene, dev), **phase_gather(dev)}
     by_phase = {}
     by_phase["3"], main_state = phase_main_path(scene, dev)
     by_phase["3b"], k4_brute = phase_brute(scene, dev)
@@ -1873,6 +1918,8 @@ def main():
         "best_target_mma": ("csrc/match_mma.cu", "ssrlcv_tpu/matching/pallas_match.py:39"),
         "extract_patches": ("csrc/patches.cu", "ssrlcv_tpu/features/patches.py:47"),
         "patch_row_sums": ("csrc/gather.cu", "scripts/bench_gather2.py:139"),
+        "convolve_separable_symmetric": (
+            "csrc/blur.cu", "none: ssrlcv_tpu/ops/image_ops.py:136 leaves the blur to XLA"),
     }
     kernels = [{"name": name, "route": "cuda", "source": f"ssrlcv_tpu_torch/{src}",
                 "replaces": rep, **recs[name]}

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "ssrlcv_match_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P],
     "ssrlcv_extract_patches": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ssrlcv_patch_row_sums": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    "ssrlcv_blur_separable": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

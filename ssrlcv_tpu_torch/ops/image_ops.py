@@ -4,6 +4,10 @@ Counterpart of ``ssrlcv_tpu/ops/image_ops.py``: float conversion, min-max
 normalisation, 2x bin / bilinear upsample and rescale with symmetric
 borders, grayscale to RGB, separable Gaussian blur and central-difference
 gradients, on (H, W) float32 maps.
+
+``convolve_separable_symmetric`` takes its plain version
+(``convolve_separable_symmetric_plain``) for tensors on the CPU; on a CUDA
+tensor it launches the blur kernel (``csrc/blur.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ import math
 
 import numpy as np
 import torch
+
+from ssrlcv_tpu_torch import _cuda
 
 
 def to_float(pixels: torch.Tensor) -> torch.Tensor:
@@ -47,7 +53,9 @@ def bin2x(img: torch.Tensor) -> torch.Tensor:
 
 
 def _symmetrize_coords(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Symmetric (reflect-with-edge-repeat) coordinate wrap."""
+    """Symmetric (reflect-with-edge-repeat) coordinate wrap, for any index:
+    i = (idx + 2n) mod 2n (floor mod), then i > n-1 -> 2n-1-i.  The blur
+    kernel (``csrc/blur.cu``) states and applies the same wrap."""
     nn = 2 * n
     i = (idx + nn) % nn
     return torch.where(i > n - 1, nn - 1 - i, i)
@@ -140,7 +148,7 @@ def _fma_taps(pad: torch.Tensor, taps: np.ndarray, axis: int, n: int) -> torch.T
     return acc
 
 
-def convolve_separable_symmetric(img: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+def convolve_separable_symmetric_plain(img: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """Separable 2-D convolution with symmetric border of (..., H, W) maps,
     each map on its own.  The kernel is symmetric, so convolution ==
     correlation.
@@ -157,6 +165,42 @@ def convolve_separable_symmetric(img: torch.Tensor, taps: np.ndarray) -> torch.T
     x = _fma_taps(img[..., cols], taps, -1, w)
     rows = _symmetrize_coords(torch.arange(-half, h + half, device=dev), h)
     return _fma_taps(x[..., rows, :], taps, -2, h)
+
+
+BLUR_MAX_TAPS = 255  # csrc/blur.cu kMaxTaps
+
+
+def convolve_separable_symmetric(img: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """``convolve_separable_symmetric_plain`` of float32 (..., H, W) maps
+    with an odd number (at most ``BLUR_MAX_TAPS``) of float32 taps.  CPU
+    tensors take the plain version; CUDA tensors the blur kernel
+    (``csrc/blur.cu``: one launch along W, one along H, bit-identical)."""
+    taps = np.ascontiguousarray(taps)
+    if img.dtype != torch.float32 or taps.dtype != np.float32:
+        raise TypeError(f"img and taps must be float32, got {img.dtype}, {taps.dtype}")
+    k = taps.shape[0] if taps.ndim == 1 else 0
+    if img.dim() < 2 or k % 2 == 0 or k > BLUR_MAX_TAPS:
+        raise ValueError(f"need (..., H, W) maps and an odd tap count up to {BLUR_MAX_TAPS}, "
+                         f"got {tuple(img.shape)} and taps of shape {taps.shape}")
+    if img.device.type == "cpu":
+        return convolve_separable_symmetric_plain(img, taps)
+    if img.device.type != "cuda":
+        raise ValueError(f"convolve_separable_symmetric: unsupported device {img.device}")
+    x = img.contiguous()
+    h, w = x.shape[-2], x.shape[-1]
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    tmp = torch.empty_like(x)
+    rc = _cuda.library().ssrlcv_blur_separable(
+        x.data_ptr(), tmp.data_ptr(), out.data_ptr(), x.numel() // (h * w), h, w,
+        taps.ctypes.data, k, _cuda.stream_ptr(x.device))
+    _cuda.check(rc, "ssrlcv_blur_separable")
+    convolve_separable_symmetric.launches += 2
+    return out
+
+
+convolve_separable_symmetric.launches = 0
 
 
 def pixel_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

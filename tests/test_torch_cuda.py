@@ -845,3 +845,142 @@ def test_cuda_driver_prints_a_record_naming_the_card(name, cuda_device, scene512
     assert rec["device"]["name"] == torch.cuda.get_device_name(0)
     assert rec["device"]["power_limit_w"] > 0 and rec["device"]["count"] >= 1
     assert sum(rec["launches"].values()) > 0
+
+
+# the blur kernel (csrc/blur.cu) against its plain version: bit for bit
+BLUR_TAPS = (13, 17, 23, 33, 47, 65)
+
+
+def _sift_taps() -> dict:
+    """The blur taps of SIFTParams() by count (the same in every octave)."""
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features.scale_space import octave_sigmas
+    from ssrlcv_tpu_torch.ops.image_ops import gaussian_kernel_1d
+
+    p = SIFTParams()
+    pw = 2.0 ** p.starting_octave
+    taps = [gaussian_kernel_1d(s, pw, p.kernel_size[0]) for s in octave_sigmas(p, 0)]
+    return {len(t): t for t in taps}
+
+
+def _dense_taps():
+    """The dense orientation field's taps (features/dense.py)."""
+    import math
+
+    from ssrlcv_tpu_torch.config import SIFTParams
+
+    lam = SIFTParams().orientation_contrib_width
+    w_or = int(math.ceil(3.0 * lam))
+    offs = np.arange(-w_or, w_or + 1, dtype=np.float64)
+    return np.exp(-(offs * offs) / (2.0 * lam * lam)).astype(np.float32)
+
+
+def _blur_pair(x, taps):
+    """(kernel, plain) blurs of ``x``; the kernel's two launches counted,
+    and a second kernel call equal to the first."""
+    from ssrlcv_tpu_torch.ops import image_ops as T
+
+    n = T.convolve_separable_symmetric.launches
+    got = T.convolve_separable_symmetric(x, taps)
+    assert T.convolve_separable_symmetric.launches == n + 2
+    assert torch.equal(got, T.convolve_separable_symmetric(x, taps))
+    return got, T.convolve_separable_symmetric_plain(x, taps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [2048, 256])
+@pytest.mark.parametrize("k", BLUR_TAPS)
+def test_cuda_blur_matches_plain(cuda_device, size, k):
+    """Each SIFT blur at octave 0's (2048^2) and octave 3's (256^2) shape,
+    equal to the plain cast-add-cast chain bit for bit."""
+    taps = _sift_taps()[k]
+    rng = np.random.default_rng(k * size)
+    x = torch.from_numpy(rng.uniform(0, 255, (size, size)).astype(np.float32)).to(cuda_device)
+    got, plain = _blur_pair(x, taps)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_blur_dense_stack_matches_plain(cuda_device):
+    """An (N, H, W) stack with dense SIFT's taps: 36 sparse orientation
+    planes, each blurred on its own."""
+    rng = np.random.default_rng(8)
+    h, w = 300, 420
+    mag = rng.exponential(3.0, (h, w)).astype(np.float32)
+    bins = rng.integers(0, 36, (h, w))
+    planes = np.where(bins[None] == np.arange(36)[:, None, None], mag[None], 0.0)
+    x = torch.from_numpy(planes.astype(np.float32)).to(cuda_device)
+    got, plain = _blur_pair(x, _dense_taps())
+    assert torch.equal(got, plain)
+    assert torch.equal(got[5], _blur_pair(x[5], _dense_taps())[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((16, 16), 65), ((3, 12, 20), 65), ((1, 5), 13),
+                                     ((2, 300, 260), 255)])
+def test_cuda_blur_wide_borders_match_plain(cuda_device, shape, k):
+    """Planes with half >= n (the border wraps more than once) and the
+    largest tap count the kernel takes."""
+    from ssrlcv_tpu_torch.ops.image_ops import BLUR_MAX_TAPS, gaussian_kernel_1d
+
+    taps = gaussian_kernel_1d(k / 8.0 - 0.01, 1.0)
+    assert len(taps) == k <= BLUR_MAX_TAPS
+    rng = np.random.default_rng(k + shape[-1])
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 50).to(cuda_device)
+    got, plain = _blur_pair(x, taps)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_blur_non_contiguous_view_matches_plain(cuda_device):
+    """A transposed and a strided view: the wrapper blurs the values the
+    view shows."""
+    rng = np.random.default_rng(12)
+    base = torch.from_numpy(rng.uniform(0, 1, (2, 256, 330)).astype(np.float32)).to(cuda_device)
+    for x in (base.transpose(-1, -2), base[:, ::3, 1::2]):
+        assert not x.is_contiguous()
+        got, plain = _blur_pair(x, _sift_taps()[23])
+        assert torch.equal(got, plain)
+        assert torch.equal(got, _blur_pair(x.contiguous(), _sift_taps()[23])[0])
+
+
+@pytest.mark.cuda
+def test_cuda_scale_space_matches_cpu(cuda_device):
+    """build_scale_space of one 1024^2 view of the benchmark's scene on the
+    card against the same call on the CPU: every dog_raw and dog_norm plane
+    equal to the bit; 2 launches a blur, 6 blurs an octave."""
+    from benchmark.scene import make_scene
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features.scale_space import build_scale_space
+    from ssrlcv_tpu_torch.ops import image_ops as T
+
+    params = SIFTParams()
+    px = torch.from_numpy(make_scene(2147483999, 1024, 2, cuda_device).views[0].pixels)
+    n = T.convolve_separable_symmetric.launches
+    card = build_scale_space(px.to(cuda_device), params, 1024, 1024)
+    assert T.convolve_separable_symmetric.launches == n + 2 * params.blurs_per_octave * len(card)
+    cpu = build_scale_space(px, params, 1024, 1024)
+    assert len(card) == len(cpu) == params.num_octaves
+    for o, (a, b) in enumerate(zip(cpu, card)):
+        assert a.sigmas == b.sigmas and a.pixel_width == b.pixel_width
+        assert torch.equal(a.dog_raw, b.dog_raw.cpu()), f"dog_raw, octave {o}"
+        assert torch.equal(a.dog_norm, b.dog_norm.cpu()), f"dog_norm, octave {o}"
+
+
+@pytest.mark.cuda
+def test_cuda_blur_wrapper_refuses_bad_arguments(cuda_device):
+    """A float64 map, an even tap count and more than BLUR_MAX_TAPS taps
+    raise before any launch."""
+    from ssrlcv_tpu_torch.ops import image_ops as T
+
+    x = torch.zeros((32, 32), device=cuda_device)
+    taps = _sift_taps()[13]
+    n = T.convolve_separable_symmetric.launches
+    with pytest.raises(TypeError):
+        T.convolve_separable_symmetric(x.double(), taps)
+    with pytest.raises(ValueError, match="odd tap count"):
+        T.convolve_separable_symmetric(x, taps[:-1])
+    with pytest.raises(ValueError, match="odd tap count"):
+        T.convolve_separable_symmetric(x, np.ones(T.BLUR_MAX_TAPS + 2, np.float32))
+    assert T.convolve_separable_symmetric.launches == n

@@ -403,3 +403,67 @@ def test_library_name_tracks_the_sources(tmp_path, monkeypatch):
     assert _cuda.library_path() == first
     (src / "match.cu").write_text((src / "match.cu").read_text() + "\n// edited\n")
     assert _cuda.library_path() != first
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 16, 17, 64])
+def test_symmetrize_coords_matches_the_blur_kernels_wrap(n):
+    """``_symmetrize_coords`` equals the wrap that csrc/blur.cu's header
+    states (i = (idx + 2n) floor-mod 2n, then i > n-1 -> 2n-1-i) over every
+    index the blur reads, half >= n included (65 and 255 taps)."""
+    from ssrlcv_tpu_torch.ops.image_ops import BLUR_MAX_TAPS, _symmetrize_coords
+
+    for half in (0, 1, 6, 32, BLUR_MAX_TAPS // 2):
+        idx = np.arange(-half, n + half)
+        i = np.mod(idx + 2 * n, 2 * n)
+        want = np.where(i > n - 1, 2 * n - 1 - i, i)
+        got = _symmetrize_coords(torch.from_numpy(idx), n).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert ((got >= 0) & (got < n)).all()
+
+
+def test_blur_cpu_path_builds_nothing(monkeypatch):
+    """CPU tensors take the blur's plain version, in the wrapper and through
+    the scale space: the kernel library is never requested and no launch is
+    counted."""
+    from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features.scale_space import build_scale_space
+    from ssrlcv_tpu_torch.ops import image_ops as T
+
+    def no_build():
+        raise AssertionError("the kernel library was requested on the CPU path")
+
+    monkeypatch.setattr(_cuda, "library", no_build)
+    before = T.convolve_separable_symmetric.launches
+    rng = np.random.default_rng(4)
+    planes = torch.from_numpy(rng.uniform(0, 1, (3, 20, 24)).astype(np.float32))
+    taps = T.gaussian_kernel_1d(1.6, 1.0)
+    got = T.convolve_separable_symmetric(planes, taps)
+    assert torch.equal(got, T.convolve_separable_symmetric_plain(planes, taps))
+    img = torch.from_numpy(rng.integers(0, 256, (64, 64)).astype(np.uint8))
+    assert len(build_scale_space(img, SIFTParams(), 64, 64)) == SIFTParams().num_octaves
+    assert T.convolve_separable_symmetric.launches == before
+
+
+def test_blur_wrapper_argument_checks():
+    """The blur wrapper rejects a non-float32 map or tap vector, an even or
+    empty tap count, more than BLUR_MAX_TAPS taps, a single line, and a
+    device it has no path for (a meta tensor stands in for a non-CPU
+    tensor: the CUDA branch launches or raises)."""
+    from ssrlcv_tpu_torch.ops import image_ops as T
+
+    img = torch.zeros((8, 8))
+    taps = T.gaussian_kernel_1d(1.0, 1.0)
+    T.convolve_separable_symmetric(img, taps)
+    with pytest.raises(TypeError):
+        T.convolve_separable_symmetric(img.double(), taps)
+    with pytest.raises(TypeError):
+        T.convolve_separable_symmetric(img, taps.astype(np.float64))
+    for bad in (taps[:-1], taps[:0], np.ones(T.BLUR_MAX_TAPS + 2, np.float32)):
+        with pytest.raises(ValueError, match="odd tap count"):
+            T.convolve_separable_symmetric(img, bad)
+    with pytest.raises(ValueError):
+        T.convolve_separable_symmetric(torch.zeros(8), taps)
+    T.convolve_separable_symmetric(img, np.ones(T.BLUR_MAX_TAPS, np.float32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        T.convolve_separable_symmetric(img.to("meta"), taps)

@@ -31,7 +31,8 @@ def _image(seed=0, h=128, w=128):
 
 
 @pytest.mark.parametrize("op", ["to_bw", "normalize_minmax", "bin2x", "upsample2x",
-                                "convolve_separable_symmetric", "pixel_gradients"])
+                                "convolve_separable_symmetric", "pixel_gradients",
+                                "convolve_separable_symmetric.half_ge_n"])
 def test_image_ops_match_jax(op):
     from ssrlcv_tpu.ops import image_ops as J
     from ssrlcv_tpu_torch.ops import image_ops as T
@@ -41,6 +42,18 @@ def test_image_ops_match_jax(op):
     if op == "to_bw":
         rgb = rng.integers(0, 256, (16, 24, 3)).astype(np.uint8)
         np.testing.assert_array_equal(T.to_bw(_t(rgb)).numpy(), np.asarray(J.to_bw(rgb)))
+        return
+    if op == "convolve_separable_symmetric.half_ge_n":
+        # 65 taps (half 32) over 16^2, the smallest octave of a 128^2 scale
+        # space, and over 12 x 20, where half > 2n along H: the border wraps
+        # more than once
+        taps = J.gaussian_kernel_1d(8.0, 1.0)
+        assert len(taps) == 65
+        for shape in ((16, 16), (12, 20)):
+            small = rng.uniform(0, 255, shape).astype(np.float32)
+            ref = jax.jit(lambda x: J.convolve_separable_symmetric(x, taps))(small)
+            got = T.convolve_separable_symmetric(_t(small), taps)
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=0)
         return
     if op == "convolve_separable_symmetric":
         taps = J.gaussian_kernel_1d(1.6, 0.5)
