@@ -39,7 +39,8 @@ def detect_extrema(dog_raw: torch.Tensor, sigmas: tuple, capacity: int,
     """3x3x3 extrema over interior pixels of DoG slices 1..B-2 (ties count
     as extrema), optionally with the first noise rejection |v| >= t applied
     before extraction.  Order is blur-major, then row-major pixel index; the
-    first ``capacity`` extrema are kept.
+    first ``capacity`` extrema are kept, and ``detect_extrema.dropped``
+    counts the others (from ``torch.nonzero``'s count, which the host holds).
 
     The JAX package selects through a hierarchical 1024-px segment sort that
     keeps at most 128 extrema per segment; ``torch.nonzero`` keeps them all,
@@ -60,7 +61,9 @@ def detect_extrema(dog_raw: torch.Tensor, sigmas: tuple, capacity: int,
     if prefilter_threshold > 0.0:
         is_ext = is_ext & (torch.abs(mid) >= prefilter_threshold)
 
-    found = torch.nonzero(is_ext.reshape(-1)).squeeze(1)[:capacity]
+    found = torch.nonzero(is_ext.reshape(-1)).squeeze(1)
+    detect_extrema.dropped += max(found.shape[0] - capacity, 0)
+    found = found[:capacity]
     n = found.shape[0]
     idx = torch.zeros((capacity,), dtype=torch.int64, device=dog_raw.device)
     idx[:n] = found
@@ -80,6 +83,10 @@ def detect_extrema(dog_raw: torch.Tensor, sigmas: tuple, capacity: int,
         theta=torch.full((capacity,), -1.0, dtype=torch.float32, device=dog_raw.device),
         mask=valid,
     )
+
+
+# extrema past ``capacity``, over every detect_extrema call
+detect_extrema.dropped = 0
 
 
 def remove_noise(kps: SSKeyPoints, threshold: float) -> SSKeyPoints:

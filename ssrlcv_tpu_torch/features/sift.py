@@ -26,7 +26,8 @@ from ssrlcv_tpu_torch.core.device import as_device_tensor
 from ssrlcv_tpu_torch.core.types import FeatureSet
 from ssrlcv_tpu_torch.features import scale_space as ss
 from ssrlcv_tpu_torch.features.descriptor import fill_descriptors
-from ssrlcv_tpu_torch.features.detector import check_descriptor_border, find_keypoints_octave
+from ssrlcv_tpu_torch.features.detector import (check_descriptor_border, detect_extrema,
+                                                find_keypoints_octave)
 from ssrlcv_tpu_torch.features.orientation import compute_orientations
 from ssrlcv_tpu_torch.logging import logger
 from ssrlcv_tpu_torch.ops import image_ops as ops
@@ -104,7 +105,13 @@ def generate_features(pixels, params: Optional[SIFTParams] = None, image_id: int
 
     The call is the span ``sift``, with ``sift.scale_space``, then per
     octave ``sift.detect`` and ``sift.describe`` (gradients, bucket
-    compaction, K1, K2) inside it, at the same boundaries as ``mark``."""
+    compaction, K1, K2), then ``sift.aggregate`` (the concatenation and the
+    copy into the capacity) inside it, at the same boundaries as ``mark``.
+
+    Counters over every call: ``generate_features.calls``, ``.features``
+    (valid features kept) and ``.dropped`` (valid features cut at
+    ``max_keypoints`` plus extrema cut at an octave's ``octave_capacity``),
+    from counts the host already holds."""
     with logger.span("sift"):
         return _generate_features(pixels, params or SIFTParams(), image_id, device,
                                   mark or _no_mark)
@@ -116,6 +123,7 @@ def _generate_features(pixels, params: SIFTParams, image_id: int, device, mark) 
     if px.ndim == 3:
         px = ops.to_bw(px)
     h, w = int(px.shape[0]), int(px.shape[1])
+    extrema_dropped = detect_extrema.dropped
 
     with logger.span("sift.scale_space"):
         octaves = ss.build_scale_space(px, params, h, w)
@@ -136,24 +144,35 @@ def _generate_features(pixels, params: SIFTParams, image_id: int, device, mark) 
                 mark((o, b, "describe_s"), described)
                 parts.append(described[1])
 
-    loc = torch.cat([p[0] for p in parts])
-    sigma = torch.cat([p[1] for p in parts])
-    theta = torch.cat([p[2] for p in parts])
-    desc = torch.cat([p[3] for p in parts])
-    cap = params.max_keypoints
-    n = loc.shape[0]
-    if n > cap:
-        logger.warn(f"image {image_id}: {n} valid features exceed max_keypoints={cap} — "
-                    "tail dropped by global aggregation; raise SIFTParams.max_keypoints")
-        n = cap
-    out = FeatureSet.empty(cap, parent=image_id, device=device)
-    out.loc[:n] = loc[:n]
-    out.sigma[:n] = sigma[:n]
-    out.theta[:n] = theta[:n]
-    out.descriptors[:n] = desc[:n]
-    out.mask[:n] = True
+    with logger.span("sift.aggregate"):
+        loc = torch.cat([p[0] for p in parts])
+        sigma = torch.cat([p[1] for p in parts])
+        theta = torch.cat([p[2] for p in parts])
+        desc = torch.cat([p[3] for p in parts])
+        cap = params.max_keypoints
+        found = loc.shape[0]
+        n = min(found, cap)
+        if found > cap:
+            logger.warn(f"image {image_id}: {found} valid features exceed max_keypoints={cap} — "
+                        "tail dropped by global aggregation; raise SIFTParams.max_keypoints")
+        out = FeatureSet.empty(cap, parent=image_id, device=device)
+        out.loc[:n] = loc[:n]
+        out.sigma[:n] = sigma[:n]
+        out.theta[:n] = theta[:n]
+        out.descriptors[:n] = desc[:n]
+        out.mask[:n] = True
+    generate_features.calls += 1
+    generate_features.features += n
+    generate_features.dropped += found - n + detect_extrema.dropped - extrema_dropped
     mark(("aggregate_s",), out)
     return out
+
+
+# calls, valid features kept and features dropped (past max_keypoints or an
+# octave's capacity) by every generate_features call
+generate_features.calls = 0
+generate_features.features = 0
+generate_features.dropped = 0
 
 
 def generate_features_many(pixel_list, params: Optional[SIFTParams] = None,

@@ -40,30 +40,36 @@ _METRICS = {"l2sq": distance_matrix, "sad": sad_matrix}
 
 
 def best_target_chunked(q_desc, t_desc, t_valid, mask_fn: Optional[Callable] = None,
-                        mask_aux: tuple = (), chunk: int = 1024, metric: str = "l2sq"):
+                        mask_aux: tuple = (), chunk: int = 1024, metric: str = "l2sq",
+                        t_aux: tuple = ()):
     """argmin over valid targets per query, ``chunk`` queries at a time.
 
-    ``mask_fn(*aux_chunk)`` -> (chunk, Nt) bool of allowed targets, where
-    ``mask_aux`` holds per-query tensors chunked alongside the descriptors.
-    Returns (best_idx int32, best_dist float32); a query with no allowed
-    target gets (0, +inf); ties resolve to the lowest target index.
-    metric: 'l2sq' (squared L2, SIFT) or 'sad' (sum of absolute
-    differences, Window_NxN)."""
+    Only the valid targets enter the distances: a capacity padded far past
+    its live rows costs what the live rows cost.  ``mask_fn(*aux_chunk,
+    *t_aux_valid)`` -> (chunk, Nv) bool of allowed targets among the Nv
+    valid ones, where ``mask_aux`` holds per-query tensors chunked alongside
+    the descriptors and ``t_aux`` per-target tensors, given at the valid
+    targets.  Returns (best_idx int32, best_dist float32) in the targets'
+    own indices; a query with no allowed target gets (0, +inf); ties
+    resolve to the lowest target index.  metric: 'l2sq' (squared L2, SIFT)
+    or 'sad' (sum of absolute differences, Window_NxN)."""
     dist_fn = _METRICS[metric]
+    nq, dev = q_desc.shape[0], q_desc.device
+    live = torch.nonzero(t_valid).squeeze(1)
+    if nq == 0 or live.shape[0] == 0:
+        return (torch.zeros((nq,), dtype=torch.int32, device=dev),
+                torch.full((nq,), torch.inf, dtype=torch.float32, device=dev))
+    t_live = t_desc[live]
+    aux_live = tuple(a[live] for a in t_aux)
     idx_out, dist_out = [], []
-    for s in range(0, q_desc.shape[0], chunk):
-        d = dist_fn(q_desc[s:s + chunk], t_desc).to(torch.float32)
-        bad = ~t_valid[None, :]
+    for s in range(0, nq, chunk):
+        d = dist_fn(q_desc[s:s + chunk], t_live).to(torch.float32)
         if mask_fn is not None:
-            bad = bad | ~mask_fn(*(a[s:s + chunk] for a in mask_aux))
-        d = torch.where(bad, torch.inf, d)
-        idx = torch.argmin(d, dim=1)
-        idx_out.append(idx.to(torch.int32))
-        dist_out.append(torch.gather(d, 1, idx[:, None])[:, 0])
-    if not idx_out:
-        dev = q_desc.device
-        return (torch.zeros((0,), dtype=torch.int32, device=dev),
-                torch.zeros((0,), dtype=torch.float32, device=dev))
+            d = torch.where(mask_fn(*(a[s:s + chunk] for a in mask_aux), *aux_live), d, torch.inf)
+        j = torch.argmin(d, dim=1)
+        best = torch.gather(d, 1, j[:, None])[:, 0]
+        idx_out.append(torch.where(torch.isfinite(best), live[j], 0).to(torch.int32))
+        dist_out.append(best)
     return torch.cat(idx_out), torch.cat(dist_out)
 
 

@@ -108,8 +108,8 @@ def match_double_constrained(query: FeatureSet, target: FeatureSet, cameras: Cam
         else:
             idx, dist = best_target_chunked(
                 query.descriptors, target.descriptors, target.mask,
-                mask_fn=lambda a, b: epipolar_segment_mask(a, b, target.loc, params.epsilon),
-                mask_aux=(p1, p2), chunk=chunk, metric=metric)
+                mask_fn=lambda a, b, t_loc: epipolar_segment_mask(a, b, t_loc, params.epsilon),
+                mask_aux=(p1, p2), t_aux=(target.loc,), chunk=chunk, metric=metric)
         return _threshold(idx, dist, query.mask, params, seed_dist, squared=not index_only)
 
 
@@ -150,8 +150,8 @@ def match_fmatrix_constrained(query: FeatureSet, target: FeatureSet, F: torch.Te
     """F-matrix epipolar-line constrained matching (chunked plain matcher)."""
     idx, dist = best_target_chunked(
         query.descriptors, target.descriptors, target.mask,
-        mask_fn=lambda q: _fmatrix_mask(q, F, target.loc, params.epsilon),
-        mask_aux=(query.loc,), chunk=chunk, metric=metric)
+        mask_fn=lambda q, t_loc: _fmatrix_mask(q, F, t_loc, params.epsilon),
+        mask_aux=(query.loc,), t_aux=(target.loc,), chunk=chunk, metric=metric)
     return _threshold(idx, dist, query.mask, params, seed_dist)
 
 

@@ -62,11 +62,12 @@ def best_target_plain(q_desc, t_desc, t_loc, p1, p2, epsilon: float, t_valid, ch
                       q_valid=None):
     """(idx int32, dist float32) per query; rows with a non-finite p1.x are
     unconstrained; rows with ``q_valid`` false get (0, +inf)."""
-    def gate(a, b):
-        return epipolar_segment_mask(a, b, t_loc, epsilon) | ~torch.isfinite(a[:, 0:1])
+    def gate(a, b, tl):
+        return epipolar_segment_mask(a, b, tl, epsilon) | ~torch.isfinite(a[:, 0:1])
 
     return _no_match(*best_target_chunked(q_desc, t_desc, t_valid, mask_fn=gate,
-                                          mask_aux=(p1, p2), chunk=chunk), q_valid)
+                                          mask_aux=(p1, p2), t_aux=(t_loc,), chunk=chunk),
+                     q_valid)
 
 
 def _row_bands(p1, p2, epsilon: float, q_valid=None):
@@ -195,12 +196,13 @@ def _launch_plain(prep: "Prepared", chunk: int = 1024):
     t_tile = torch.empty_like(prep.tperm, dtype=torch.int64)
     t_tile[prep.tperm.long()] = torch.arange(prep.t_desc.shape[0], device=dev) // TT
 
-    def gate(a, b, w):
-        return ((epipolar_segment_mask(a, b, prep.t_loc, prep.epsilon)
-                 | ~torch.isfinite(a[:, 0:1])) & live[w][:, t_tile])
+    def gate(a, b, w, tl, tt):
+        return ((epipolar_segment_mask(a, b, tl, prep.epsilon)
+                 | ~torch.isfinite(a[:, 0:1])) & live[w][:, tt])
 
     return _no_match(*best_target_chunked(prep.q_desc, prep.t_desc, prep.t_valid, mask_fn=gate,
-                                          mask_aux=(prep.p1, prep.p2, q_warp), chunk=chunk),
+                                          mask_aux=(prep.p1, prep.p2, q_warp),
+                                          t_aux=(prep.t_loc, t_tile), chunk=chunk),
                      prep.q_valid)
 
 

@@ -984,3 +984,93 @@ def test_cuda_blur_wrapper_refuses_bad_arguments(cuda_device):
     with pytest.raises(ValueError, match="odd tap count"):
         T.convolve_separable_symmetric(x, np.ones(T.BLUR_MAX_TAPS + 2, np.float32))
     assert T.convolve_separable_symmetric.launches == n
+
+
+CAPACITY, LIVE = 196608, 120_000  # the 2048^2 deployment's capacity, about a view's most features
+
+
+def _capacity_case(seed=31):
+    """K3's operands at the capacity of a 2048^2 view: 196,608 rows, the
+    first 120,000 live (SIFT's FeatureSet order) and the tail padding, on a
+    2048^2 frame; exact copies, a tie (lowest index must win) and epipolar
+    segments of 0-300 px.  Returns (q, t, t_loc, p1, p2, t_valid, q_valid)."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 256, (CAPACITY, 128)).astype(np.uint8)
+    q = rng.integers(0, 256, (CAPACITY, 128)).astype(np.uint8)
+    t_loc = rng.uniform(0, 2048, (CAPACITY, 2)).astype(np.float32)
+    t_valid = np.arange(CAPACITY) < LIVE
+    q_valid = np.arange(CAPACITY) < LIVE - 1000
+    q[:5000] = t[rng.integers(0, LIVE, 5000)]
+    t[LIVE - 1] = t[7]
+    q[9] = t[7]
+    c = rng.uniform(0, 2048, (CAPACITY, 2)).astype(np.float32)
+    d = rng.normal(0, 1, (CAPACITY, 2)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    length = rng.uniform(0, 300, (CAPACITY, 1)).astype(np.float32)
+    p1 = (c - d * length / 2).astype(np.float32)
+    p2 = (c + d * length / 2).astype(np.float32)
+    p1[9], p2[9] = t_loc[7] - (10, 0), t_loc[7] + (10, 0)
+    return q, t, t_loc, p1, p2, t_valid, q_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("constrained", [False, True])
+def test_cuda_best_target_at_capacity_matches_plain(cuda_device, constrained):
+    """K3's seed pass (every segment +inf, epsilon 0) and constrained pass
+    (epsilon 25) at 196,608 x 196,608 with 120,000 live targets and 119,000
+    live queries: idx and dist bit-identical to the plain chunked matcher,
+    (0, +inf) on the rows past the live ones, the tie to the lower index."""
+    from ssrlcv_tpu_torch.matching.match_kernel import best_target, best_target_plain
+
+    q, t, t_loc, p1, p2, t_valid, q_valid = _capacity_case()
+    if not constrained:
+        p1[:], p2[:] = np.inf, np.inf
+    eps = 25.0 if constrained else 0.0
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, t, t_loc, p1, p2)]
+    tv, qv = (torch.from_numpy(a).to(cuda_device) for a in (t_valid, q_valid))
+    ik, dk = best_target(*args, eps, tv, q_valid=qv)
+    ip, dp = best_target_plain(*args, eps, tv, q_valid=qv)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert int(ik[9]) == 7 and float(dk[9]) == 0.0
+    assert (ik[~qv] == 0).all() and torch.isinf(dk[~qv]).all()
+    assert int(torch.isfinite(dk).sum()) > (100_000 if not constrained else 5000)
+
+
+@pytest.mark.cuda
+def test_cuda_descriptor_past_65536_keypoints_matches_plain(cuda_device):
+    """K2 over 70,000 keypoints of one 1024^2 plane at the widest window of
+    the main path's buckets: every descriptor byte within 3 of the plain
+    version's after the epilogue."""
+    from ssrlcv_tpu_torch.features.desc_kernel import (descriptor_histograms,
+                                                       descriptor_histograms_plain)
+    from ssrlcv_tpu_torch.features.descriptor import descriptor_epilogue
+
+    rng = np.random.default_rng(37)
+    n, side, w_max = 70_000, 1024, 29
+    gx, gy = (torch.from_numpy(rng.standard_normal((side, side)).astype(np.float32))
+              .to(cuda_device) for _ in range(2))
+    loc = torch.from_numpy(rng.uniform(w_max + 2, side - w_max - 3, (n, 2))
+                           .astype(np.float32)).to(cuda_device)
+    sigma = torch.from_numpy(rng.uniform(0.8, w_max / 6.0, n).astype(np.float32)).to(cuda_device)
+    theta = torch.from_numpy(rng.uniform(0, 2 * np.pi, n).astype(np.float32)).to(cuda_device)
+    args = (gx, gy, loc, theta, sigma, 1.0, 6.0, w_max)
+    n0 = descriptor_histograms.launches
+    vk = descriptor_histograms(*args)
+    assert descriptor_histograms.launches == n0 + 1 and vk.shape == (n, 128)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    dk = descriptor_epilogue(vk, mask).int()
+    dp = descriptor_epilogue(descriptor_histograms_plain(*args), mask).int()
+    assert int((dk - dp).abs().max()) <= 3
+    assert int(dk.sum(1).min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", BLUR_TAPS)
+def test_cuda_blur_4096_matches_plain(cuda_device, k):
+    """Each SIFT blur over a 4096^2 plane, octave -1 of a 2048^2 frame
+    (16.8 M pixels), equal to the plain cast-add-cast chain bit for bit."""
+    rng = np.random.default_rng(k + 4096)
+    x = torch.from_numpy(rng.uniform(0, 255, (4096, 4096)).astype(np.float32)).to(cuda_device)
+    got, plain = _blur_pair(x, _sift_taps()[k])
+    assert got.shape == x.shape
+    assert torch.equal(got, plain)

@@ -136,7 +136,7 @@ def test_every_layer_opens_its_spans(runs):
     want = {"stage.features", "stage.pose", "stage.matching", "stage.triangulation",
             "stage.filtering", "stage.bundle_adjust",
             "stage.sift", "stage.sift.scale_space", "stage.sift.detect", "stage.sift.describe",
-            "stage.match.seed_distances", "stage.match.double",
+            "stage.sift.aggregate", "stage.match.seed_distances", "stage.match.double",
             "stage.geometry.triangulate", "stage.geometry.filter", "stage.io.write_ply",
             "stage.ba.setup", "stage.ba.iteration", "stage.ba.grad", "stage.ba.hessian",
             "stage.ba.solve", "stage.ba.objective", "stage.ba.final"}
@@ -172,6 +172,7 @@ def test_spans_nest_as_the_layers(runs):
             assert len(within(part, it)) == 1, part
     for sift in (r for r in ranges if r[0] == "stage.sift"):
         assert len(within("stage.sift.scale_space", sift)) == 1
+        assert len(within("stage.sift.aggregate", sift)) == 1
         assert len(within("stage.sift.detect", sift)) == len(within("stage.sift.describe", sift))
     (matching,) = [r for r in ranges if r[0] == "stage.matching"]
     for r in ranges:
