@@ -3,7 +3,12 @@
 Counterpart of ``ssrlcv_tpu/ba/two_view.py``: steps on the 12-dim camera
 state (2 cameras x {pos, rot}) against the total linear error, with the
 exact gradient and Hessian from ``torch.func.grad`` / ``torch.func.hessian``
-and camera 0 pinned.  Modes:
+and camera 0 pinned.  Where every live slot of a view column has the same
+parent, as the 2-view ``MatchSet`` of ``matches_to_matchset`` has, the
+objective takes each column's camera row once and broadcasts it over the
+tracks: the rays are those of ``generate_bundles`` bit for bit, and the
+derivatives sum over the tracks in place of an accumulating index backward
+into the camera rows.  Modes:
 
   * ``"lm"`` (the pipeline's): damped Levenberg-Marquardt steps;
   * ``"newton"``: alpha-scaled Newton steps alpha * H^+ g through an SVD
@@ -30,7 +35,8 @@ import torch
 from torch.func import grad, hessian
 
 from ssrlcv_tpu_torch.config import BAParams
-from ssrlcv_tpu_torch.core.types import Cameras, MatchSet, PointCloud
+from ssrlcv_tpu_torch.core import camera_math
+from ssrlcv_tpu_torch.core.types import Bundles, Cameras, MatchSet, PointCloud
 from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
 from ssrlcv_tpu_torch.geometry.triangulation import linear_error_objective, two_view_triangulate
 from ssrlcv_tpu_torch.logging import logger
@@ -43,14 +49,46 @@ def _apply_params(cameras: Cameras, params: torch.Tensor) -> Cameras:
     return cameras.replace(cam_pos=params[:, 0:3], cam_rot=params[:, 3:6])
 
 
+def view_columns(matches: MatchSet):
+    """(V,) int64 camera of each view column where every slot of the column
+    has that parent or none (-1); a column with no parent at all takes
+    camera 0, as ``generate_bundles`` does.  None where a column mixes
+    parents, or without tracks.  One host read."""
+    parent = matches.kp_parent
+    if parent.shape[0] == 0:
+        return None
+    col = parent.amax(0)
+    if not bool(((parent == col) | (parent < 0)).all()):
+        return None
+    return torch.clamp(col, min=0).to(torch.int64)
+
+
 def make_objective(matches: MatchSet, cameras: Cameras):
-    """Total linear error as a function of the flat (N*6,) camera state."""
+    """Total linear error as a function of the flat (N*6,) camera state.
+    The function's ``column_cameras`` says whether it reaches the cameras
+    by view column (``view_columns``) or by each slot's parent."""
     n = cameras.num_cameras
+    col = view_columns(matches)
 
-    def objective(p_flat: torch.Tensor) -> torch.Tensor:
-        cams = _apply_params(cameras, p_flat.reshape(n, 6))
-        return linear_error_objective(generate_bundles(matches, cams))
+    if col is None:
+        def objective(p_flat: torch.Tensor) -> torch.Tensor:
+            cams = _apply_params(cameras, p_flat.reshape(n, 6))
+            return linear_error_objective(generate_bundles(matches, cams))
+    else:
+        t = matches.kp_loc.shape[0]
+        foc, fov_x, size = cameras.foc[col], cameras.fov[col, 0], cameras.size[col]
 
+        def objective(p_flat: torch.Tensor) -> torch.Tensor:
+            # each column's camera row broadcast over the tracks: the rays
+            # are the row gather's, and each derivative is the same
+            # per-track terms summed over the tracks
+            state = torch.index_select(p_flat.reshape(n, 6), 0, col)  # (V, 6)
+            pos, rot = (state[:, k:k + 3].expand(t, -1, -1) for k in (0, 3))
+            vec, pnt = camera_math.pixel_to_ray(matches.kp_loc, pos, rot, foc, fov_x, size)
+            return linear_error_objective(Bundles(vec=vec, pnt=pnt, num_views=matches.num_views,
+                                                  mask=matches.mask))
+
+    objective.column_cameras = col is not None
     return objective
 
 
@@ -61,6 +99,7 @@ class BAResult(NamedTuple):
     final_error: torch.Tensor
     error_history: torch.Tensor  # (iterations+1,)
     accepted: torch.Tensor       # () int64: the steps taken
+    column_cameras: bool = False  # the objective reached the cameras by view column
 
 
 def bundle_adjust_two_view(matches: MatchSet, cameras: Cameras, iterations: int = 10,
@@ -87,7 +126,8 @@ def bundle_adjust_two_view(matches: MatchSet, cameras: Cameras, iterations: int 
     if mode == "reference":
         with logger.span("ba.final"):
             cloud, _ = two_view_triangulate(generate_bundles(matches, cameras))
-        return BAResult(cameras, cloud, init_err, init_err, hist, accepted)
+        return BAResult(cameras, cloud, init_err, init_err, hist, accepted,
+                        objective.column_cameras)
 
     def derivatives(params):
         with logger.span("ba.grad"):
@@ -142,7 +182,7 @@ def bundle_adjust_two_view(matches: MatchSet, cameras: Cameras, iterations: int 
     with logger.span("ba.final"):
         out_cams = _apply_params(cameras, best_params.reshape(n_cams, 6))
         cloud, _ = two_view_triangulate(generate_bundles(matches, out_cams))
-    return BAResult(out_cams, cloud, init_err, best_err, hist, accepted)
+    return BAResult(out_cams, cloud, init_err, best_err, hist, accepted, objective.column_cameras)
 
 
 def bundle_adjust(matches: MatchSet, cameras: Cameras, params: BAParams,

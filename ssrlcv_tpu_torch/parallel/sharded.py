@@ -301,4 +301,4 @@ def sharded_bundle_adjust(mesh, matches: MatchSet, cameras: Cameras, iterations:
 
     out_cams = _apply_params(cameras, best.reshape(n_cams, 6))
     cloud, _ = sharded_triangulate(mesh, matches, out_cams)
-    return BAResult(out_cams, cloud, init_err, best_err, hist, accepted)
+    return BAResult(out_cams, cloud, init_err, best_err, hist, accepted, local.column_cameras)

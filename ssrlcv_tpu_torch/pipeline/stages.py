@@ -244,15 +244,21 @@ def do_bundle_adjust(state: PipelineState) -> PipelineState:
     iterations = state.config.ba.iterations
     do_bundle_adjust.iterations += iterations
     do_bundle_adjust.accepted += int(accepted)
+    if _two_view(state):
+        do_bundle_adjust.two_view_calls += 1
+        do_bundle_adjust.column_cameras += int(result.column_cameras)
     logger.info(f"bundle adjust: {e0!r} -> {e1!r} "
                 f"({int(accepted)} of {iterations} steps accepted)")
     _write_cloud(state, "ssrlcv-BA-final")
     return state
 
 
-# LM iterations run and steps accepted by every do_bundle_adjust call
+# LM iterations run and steps accepted by every do_bundle_adjust call; its
+# 2-view calls, and those whose objective reached the cameras by view column
 do_bundle_adjust.iterations = 0
 do_bundle_adjust.accepted = 0
+do_bundle_adjust.two_view_calls = 0
+do_bundle_adjust.column_cameras = 0
 
 
 def _write_cloud(state: PipelineState, name: str):

@@ -1074,3 +1074,72 @@ def test_cuda_blur_4096_matches_plain(cuda_device, k):
     got, plain = _blur_pair(x, _sift_taps()[k])
     assert got.shape == x.shape
     assert torch.equal(got, plain)
+
+
+def _ba_columns_case(n, dev, seed=19):
+    """A 2-view MatchSet of ``n`` tracks over the pose-test rig's two
+    cameras (tests/test_torch_modules.py::_rig), pixels uniform over the
+    frame, a tenth of the tracks dead as capacity padding; and the
+    cameras, camera 1 turned off its pose."""
+    from ssrlcv_tpu_torch.core.types import Cameras, MatchSet
+
+    rng = np.random.default_rng(seed)
+    cams = Cameras.from_numpy(
+        device=dev, cam_pos=np.array([[0.0, 0.0, 0.0], [-70.0, 3.0, 1.5]], np.float32),
+        cam_rot=np.array([[2.0568, 0.0222, -0.0420], [2.0539, -0.0591, 0.1125]], np.float32),
+        fov=np.full((2, 2), 0.0418879, np.float32), foc=np.full((2,), 0.8593, np.float32),
+        dpix=np.full((2, 2), 1.7e-5, np.float32), size=np.full((2, 2), 1024, np.int32),
+        ecef_offset=np.zeros((2, 3), np.float32), timestamp=np.zeros((2,), np.int32))
+    live = np.arange(n) < n - n // 10
+    kp = np.where(live[:, None, None], rng.uniform(0, 1024, (n, 2, 2)), 0).astype(np.float32)
+    ms = MatchSet.from_numpy(device=dev, kp_loc=kp,
+                             kp_parent=np.where(live[:, None], [0, 1], -1).astype(np.int32),
+                             num_views=np.where(live, 2, 0).astype(np.int32), mask=live)
+    return ms, cams
+
+
+def _kernels(fn):
+    """The names of the kernels ``fn()`` runs on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == cuda}
+
+
+@pytest.mark.cuda
+def test_cuda_ba_objective_by_view_column(cuda_device):
+    """2-view BA's objective over 117,760 tracks (a 2048^2 pair's) with the
+    cameras reached by view column: its value equal to the row gather's
+    (``generate_bundles``) bit for bit, the gradient and Hessian within
+    1e-4 of the row gather's largest entry (the float32 order of the sums
+    over the tracks), and one gradient and one Hessian run no
+    ``indexing_backward`` kernel, which the row gather's gradient runs."""
+    from torch.func import grad, hessian
+
+    from ssrlcv_tpu_torch.ba.two_view import _apply_params, make_objective
+    from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
+    from ssrlcv_tpu_torch.geometry.triangulation import linear_error_objective
+
+    ms, cams = _ba_columns_case(117_760, cuda_device)
+    obj = make_objective(ms, cams)
+    assert obj.column_cameras
+
+    def row(p):
+        return linear_error_objective(generate_bundles(ms, _apply_params(cams, p.reshape(2, 6))))
+
+    p0 = torch.cat([cams.cam_pos, cams.cam_rot], dim=1).reshape(-1)
+    step = torch.tensor([0.0] * 6 + [0.01, -0.02, 0.003, 1e-4, -2e-4, 3e-4], device=cuda_device)
+    for p in (p0, p0 + step):
+        assert torch.equal(obj(p), row(p)) and float(obj(p)) > 0
+        for fn in (grad, hessian):
+            got, want = fn(obj)(p), fn(row)(p)
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    grad_fn, hess_fn, row_grad = grad(obj), hessian(obj), grad(row)
+    column = _kernels(lambda: (grad_fn(p0), hess_fn(p0)))
+    assert column and not [k for k in column if "indexing_backward" in k]
+    assert [k for k in _kernels(lambda: row_grad(p0)) if "indexing_backward" in k]

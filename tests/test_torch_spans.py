@@ -17,6 +17,7 @@ import pytest
 import torch
 
 ITERATIONS = 10  # BAParams().iterations, the pipeline's
+COUNTERS = ("iterations", "accepted", "two_view_calls", "column_cameras")
 
 
 def _user_ranges(prof):
@@ -34,8 +35,8 @@ def _inside(inner, outer):
 @functools.lru_cache(maxsize=None)
 def _runs(views):
     """(views, scene, run with tracing off, run traced, the traced run's
-    ranges, the listener's calls, the counters' steps in the untraced run,
-    its log)."""
+    ranges, the listener's calls, the steps of ``do_bundle_adjust``'s
+    counters in the untraced run, its log)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig, SIFTParams
@@ -68,10 +69,9 @@ def _runs(views):
         calls.append((name, begin))
 
     try:
-        before = T.do_bundle_adjust.iterations, T.do_bundle_adjust.accepted
+        before = {k: getattr(T.do_bundle_adjust, k) for k in COUNTERS}
         off = run()
-        steps = (T.do_bundle_adjust.iterations - before[0],
-                 T.do_bundle_adjust.accepted - before[1])
+        steps = {k: getattr(T.do_bundle_adjust, k) - before[k] for k in COUNTERS}
         logger.close()
         with open(logger.path) as f:
             log = f.read()
@@ -197,10 +197,20 @@ def test_a_listener_sees_every_span_begin_and_end_in_nesting_order(runs):
 def test_do_bundle_adjust_counts_and_logs_the_steps(runs):
     """The iterations run and the steps accepted go to
     ``do_bundle_adjust``'s counters and into its log row."""
-    _, _, _, _, _, _, (iterations, accepted), log = runs
+    _, _, _, _, _, _, steps, log = runs
+    iterations, accepted = steps["iterations"], steps["accepted"]
     assert iterations == ITERATIONS and 0 <= accepted <= ITERATIONS
     (row,) = [line for line in log.splitlines() if ",bundle adjust:" in line]
     assert row.endswith(f"({accepted} of {ITERATIONS} steps accepted)")
+
+
+def test_do_bundle_adjust_counts_the_column_path(runs):
+    """A run of two views counts one 2-view BA call, and its pair's
+    tracks (one parent a view column) take the column path; a run of
+    three views counts neither."""
+    views, *_, steps, _ = runs
+    two = int(views == 2)
+    assert (steps["two_view_calls"], steps["column_cameras"]) == (two, two)
 
 
 @pytest.mark.parametrize("mode", ["lm", "newton", "reference"])
