@@ -1518,12 +1518,13 @@ MESH_BA_ORDER_RTOL = 2e-2
 
 def _blocked_lm(matches, cams, blocks: int, iterations: int = 10):
     """The plain reference of BA over ``blocks`` data ranks, in one
-    process: the 2-view LM loop of ba.two_view (mode "lm", camera 0 pinned)
+    process: the LM loop of ba.lm as 2-view BA runs it (camera 0 pinned)
     with the error, gradient and Hessian each the sum, in rank order, of
     the torch.func values over the tracks' equal blocks (padded with masked
     tracks).  Returns the (initial, final) error."""
     from torch.func import grad, hessian
 
+    from ssrlcv_tpu_torch.ba.lm import pack
     from ssrlcv_tpu_torch.ba.two_view import make_objective
     from ssrlcv_tpu_torch.core.types import MatchSet
 
@@ -1541,7 +1542,7 @@ def _blocked_lm(matches, cams, blocks: int, iterations: int = 10):
             out = out + fn(o)(p)
         return out
 
-    p = torch.cat([cams.cam_pos, cams.cam_rot], dim=1).reshape(-1)
+    p = pack(cams)
     free = torch.ones_like(p)
     free[:6] = 0.0
     init = best_err = total(lambda o: o, p)

@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ssrlcv_tpu_torch.ba.lm import pack
 from ssrlcv_tpu_torch.core import camera_math
 from ssrlcv_tpu_torch.core.types import Bundles, Cameras, MatchSet, PointCloud
 from ssrlcv_tpu_torch.io import ply
@@ -88,10 +89,6 @@ def save_view_number_cloud(path: str, cloud: PointCloud, matches: MatchSet) -> s
                                   _host(matches.num_views)[m].astype(np.float32))
 
 
-def _pack(cameras: Cameras) -> torch.Tensor:
-    return torch.cat([cameras.cam_pos, cameras.cam_rot], dim=1)
-
-
 def generate_sensitivity_functions(matches: MatchSet, cameras: Cameras, out_dir: str,
                                    deltas: np.ndarray = None,
                                    prefix: str = "sensitivity") -> dict[str, str]:
@@ -103,15 +100,15 @@ def generate_sensitivity_functions(matches: MatchSet, cameras: Cameras, out_dir:
     if deltas is None:
         deltas = np.linspace(-1e-3, 1e-3, 41)
     obj = make_objective(matches, cameras)
-    base = _pack(cameras)
+    base = pack(cameras)
     os.makedirs(out_dir, exist_ok=True)
     out = {}
     for pi, name in enumerate(["pos_x", "pos_y", "pos_z", "rot_x", "rot_y", "rot_z"]):
         rows = []
         for d in deltas:
             p = base.clone()
-            p[1, pi] += float(d)
-            rows.append(f"{float(d)},{float(obj(p.reshape(-1)))}\n")
+            p[6 + pi] += float(d)  # camera 1's parameter pi
+            rows.append(f"{float(d)},{float(obj(p))}\n")
         path = os.path.join(out_dir, f"{prefix}_{name}.csv")
         with open(path, "w") as f:
             f.write("offset,linear_error\n" + "".join(rows))
@@ -156,7 +153,7 @@ def test_bundle_adjustment_noise(matches: MatchSet, cameras: Cameras, generator:
     from ssrlcv_tpu_torch.ba.two_view import bundle_adjust_two_view, make_objective
 
     obj = make_objective(matches, cameras)
-    clean = float(obj(_pack(cameras).reshape(-1)))
+    clean = float(obj(pack(cameras)))
     dev = cameras.cam_rot.device
     n_rot = torch.randn(3, generator=generator, device=dev)
     n_pos = torch.randn(3, generator=generator, device=dev)
@@ -164,6 +161,6 @@ def test_bundle_adjustment_noise(matches: MatchSet, cameras: Cameras, generator:
     rot[1] += noise_rot * n_rot
     pos[1] += noise_pos * n_pos
     noisy_cams = cameras.replace(cam_rot=rot, cam_pos=pos)
-    noisy = float(obj(_pack(noisy_cams).reshape(-1)))
+    noisy = float(obj(pack(noisy_cams)))
     r = bundle_adjust_two_view(matches, noisy_cams, iterations=iterations, mode="lm")
     return clean, noisy, float(r.final_error)

@@ -225,80 +225,48 @@ def sharded_triangulate(mesh, matches: MatchSet, cameras: Cameras):
     return pc.replace(points=pc.points[:cap], errors=pc.errors[:cap], mask=pc.mask[:cap]), err
 
 
-def _lm_solve(H, g, lam, free):
-    """Damped LM solve with pinned parameters: the linear algebra of
-    ``ba.two_view``'s LM step."""
-    damped = H + lam * torch.diag(torch.clamp(torch.diagonal(H), min=1e-8))
-    damped = damped * free[:, None] * free[None, :] + torch.diag(1.0 - free)
-    return torch.linalg.solve_ex(damped, g)[0]
-
-
-def _free_mask(n_cams: int, like: torch.Tensor, fix_camera0: bool) -> torch.Tensor:
-    free = torch.ones((n_cams, 6), dtype=like.dtype, device=like.device)
-    if fix_camera0:
-        free[0] = 0.0
-    return free.reshape(-1)
-
-
 def sharded_ba_step(mesh, matches: MatchSet, cameras: Cameras, params_flat, lam,
                     fix_camera0: bool = True):
     """One sharded LM iteration on the 2-view BA objective: each data
     rank's error, gradient and Hessian over its tracks, summed over data,
-    then the (6N)x(6N) damped solve on every rank.  Returns (new flat
-    camera state, total error at ``params_flat``)."""
+    then ``ba.lm.damped_solve`` on every rank.  Returns (new flat camera
+    state, total error at ``params_flat``)."""
+    from ssrlcv_tpu_torch.ba import lm
     from ssrlcv_tpu_torch.ba.two_view import make_objective
 
     obj = make_objective(_track_shard(mesh, matches), cameras)
     m = params_flat.shape[0]
     red = all_reduce(torch.cat([obj(params_flat).reshape(1), grad(obj)(params_flat),
                                 hessian(obj)(params_flat).reshape(-1)]), "SUM", mesh, DATA_AXIS)
-    free = _free_mask(cameras.num_cameras, params_flat, fix_camera0)
+    free = lm.free_params(cameras.num_cameras, params_flat, fix_camera0)
     lam = torch.as_tensor(lam, dtype=params_flat.dtype, device=params_flat.device)
-    step = _lm_solve(red[1 + m:].reshape(m, m), red[1:1 + m] * free, lam, free)
-    return params_flat - step * free, red[0]
+    return params_flat - lm.damped_solve(red[1 + m:].reshape(m, m), red[1:1 + m], lam, free), red[0]
 
 
 def sharded_bundle_adjust(mesh, matches: MatchSet, cameras: Cameras, iterations: int = 10,
-                          fix_camera0: bool = True, initial_lambda: float = 1e-3):
-    """Distributed 2-view LM bundle adjustment: the lambda-adaptive loop of
-    ``ba.two_view.bundle_adjust_two_view(mode="lm")`` with the error,
-    gradient and Hessian summed over data each iteration.  Every decision
-    is taken on the summed scalars, so every rank runs the same loop.
-    Returns a ``ba.two_view.BAResult``, the same on every rank."""
-    from ssrlcv_tpu_torch.ba.two_view import BAResult, _apply_params, make_objective
+                          fix_camera0: bool = True):
+    """Distributed 2-view LM bundle adjustment: ``ba.lm``'s loop, as
+    ``ba.two_view.bundle_adjust_two_view(mode="lm")`` runs it, with the
+    error summed over data and the gradient and Hessian summed in one
+    all-reduce each iteration.  Every decision is taken on the summed
+    scalars, so every rank runs the same loop.  Returns a
+    ``ba.lm.BAResult``, the same on every rank."""
+    from ssrlcv_tpu_torch.ba import lm
+    from ssrlcv_tpu_torch.ba.two_view import make_objective
 
-    n_cams = cameras.num_cameras
-    local = make_objective(_track_shard(mesh, matches), cameras)
-    grad_fn, hess_fn = grad(local), hessian(local)
+    def setup(p0):
+        local = make_objective(_track_shard(mesh, matches), cameras)
+        m = p0.shape[0]
 
-    def objective(p):
-        return all_reduce(local(p).reshape(1), "SUM", mesh, DATA_AXIS)[0]
+        def error(p):
+            return all_reduce(local(p).reshape(1), "SUM", mesh, DATA_AXIS)[0]
 
-    p0 = torch.cat([cameras.cam_pos, cameras.cam_rot], dim=1).reshape(-1)
-    free = _free_mask(n_cams, p0, fix_camera0)
-    init_err = objective(p0)
-    hist = init_err.repeat(iterations + 1)
-    best, best_err = p0, init_err
-    lam = torch.tensor(initial_lambda, dtype=p0.dtype, device=p0.device)
-    done = torch.tensor(False, device=p0.device)
-    accepted = torch.zeros((), dtype=torch.int64, device=p0.device)
-    m = p0.shape[0]
-    for i in range(iterations):
-        # the gradient and Hessian summed over data in one all-reduce
-        red = all_reduce(torch.cat([grad_fn(best), hess_fn(best).reshape(-1)]), "SUM", mesh,
-                         DATA_AXIS)
-        new = best - _lm_solve(red[m:].reshape(m, m), red[:m] * free, lam, free) * free
-        new_err = objective(new)
-        improved = new_err < best_err
-        live = ~done
-        take = improved & live
-        best = torch.where(take, new, best)
-        best_err = torch.where(take, new_err, best_err)
-        accepted += take
-        lam = torch.where(live, torch.where(improved, lam * 0.3, lam * 10.0), lam)
-        hist[i + 1] = torch.where(live, best_err, hist[i + 1])
-        done = done | (~improved & (i > 0))
+        def summed(g, H):
+            red = all_reduce(torch.cat([g, H.reshape(-1)]), "SUM", mesh, DATA_AXIS)
+            return red[:m], red[m:].reshape(m, m)
 
-    out_cams = _apply_params(cameras, best.reshape(n_cams, 6))
-    cloud, _ = sharded_triangulate(mesh, matches, out_cams)
-    return BAResult(out_cams, cloud, init_err, best_err, hist, accepted, local.column_cameras)
+        return lm.Problem(error(p0), error, grad(local), hessian(local),
+                          cloud=lambda cams: sharded_triangulate(mesh, matches, cams)[0],
+                          freeze=True, column_cameras=local.column_cameras, summed=summed)
+
+    return lm.adjust(cameras, setup, iterations, fix_camera0)

@@ -244,9 +244,8 @@ def do_bundle_adjust(state: PipelineState) -> PipelineState:
     iterations = state.config.ba.iterations
     do_bundle_adjust.iterations += iterations
     do_bundle_adjust.accepted += int(accepted)
-    if _two_view(state):
-        do_bundle_adjust.two_view_calls += 1
-        do_bundle_adjust.column_cameras += int(result.column_cameras)
+    do_bundle_adjust.two_view_calls += int(_two_view(state))
+    do_bundle_adjust.column_cameras += int(result.column_cameras)
     logger.info(f"bundle adjust: {e0!r} -> {e1!r} "
                 f"({int(accepted)} of {iterations} steps accepted)")
     _write_cloud(state, "ssrlcv-BA-final")

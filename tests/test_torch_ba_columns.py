@@ -92,13 +92,11 @@ def _case(name, request):
 def _row_gather(matches, cameras):
     """The objective through ``generate_bundles``' gather by each slot's
     parent."""
-    from ssrlcv_tpu_torch.ba.two_view import _apply_params
+    from ssrlcv_tpu_torch.ba.lm import unpack
     from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
     from ssrlcv_tpu_torch.geometry.triangulation import linear_error_objective
 
-    n = cameras.num_cameras
-    return lambda p: linear_error_objective(
-        generate_bundles(matches, _apply_params(cameras, p.reshape(n, 6))))
+    return lambda p: linear_error_objective(generate_bundles(matches, unpack(cameras, p)))
 
 
 def _close(got, want):
@@ -110,13 +108,14 @@ def test_objective_by_view_column_equals_the_row_gather(case, request):
     """At the input cameras and a step away: the objective equal to the
     row gather's to the bit, gradient and Hessian within DERIV_RTOL; the
     column path taken where every column has one parent, not in "mixed"."""
+    from ssrlcv_tpu_torch.ba.lm import pack
     from ssrlcv_tpu_torch.ba.two_view import make_objective, view_columns
 
     ms, cams = _case(case, request)
     obj, row = make_objective(ms, cams), _row_gather(ms, cams)
     assert obj.column_cameras is (case != "mixed")
     assert (view_columns(ms) is None) is (case == "mixed")
-    p0 = torch.cat([cams.cam_pos, cams.cam_rot], dim=1).reshape(-1)
+    p0 = pack(cams)
     step = torch.zeros_like(p0)
     step[6:12] = torch.tensor([0.01, -0.02, 0.003, 1e-4, -2e-4, 3e-4])
     for p in (p0, p0 + step):

@@ -1121,7 +1121,8 @@ def test_cuda_ba_objective_by_view_column(cuda_device):
     ``indexing_backward`` kernel, which the row gather's gradient runs."""
     from torch.func import grad, hessian
 
-    from ssrlcv_tpu_torch.ba.two_view import _apply_params, make_objective
+    from ssrlcv_tpu_torch.ba.lm import pack, unpack
+    from ssrlcv_tpu_torch.ba.two_view import make_objective
     from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
     from ssrlcv_tpu_torch.geometry.triangulation import linear_error_objective
 
@@ -1130,9 +1131,9 @@ def test_cuda_ba_objective_by_view_column(cuda_device):
     assert obj.column_cameras
 
     def row(p):
-        return linear_error_objective(generate_bundles(ms, _apply_params(cams, p.reshape(2, 6))))
+        return linear_error_objective(generate_bundles(ms, unpack(cams, p)))
 
-    p0 = torch.cat([cams.cam_pos, cams.cam_rot], dim=1).reshape(-1)
+    p0 = pack(cams)
     step = torch.tensor([0.0] * 6 + [0.01, -0.02, 0.003, 1e-4, -2e-4, 3e-4], device=cuda_device)
     for p in (p0, p0 + step):
         assert torch.equal(obj(p), row(p)) and float(obj(p)) > 0

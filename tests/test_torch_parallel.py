@@ -273,20 +273,21 @@ def test_sharded_ba_step_matches_jax(mesh11):
     from ssrlcv_tpu.ba.two_view import _pack
     from ssrlcv_tpu.ba.two_view import make_objective as jax_objective
     from ssrlcv_tpu.core.types import MatchSet as JMS
+    from ssrlcv_tpu_torch.ba import lm
     from ssrlcv_tpu_torch.ba.two_view import make_objective
     from ssrlcv_tpu_torch.core.types import MatchSet
-    from ssrlcv_tpu_torch.parallel.sharded import _free_mask, _lm_solve, sharded_ba_step
+    from ssrlcv_tpu_torch.parallel.sharded import sharded_ba_step
 
     cams, arrays = _perturbed_rig()
     jobj = jax.jit(jax_objective(JMS(**{k: jnp.asarray(v) for k, v in arrays.items()}), cams))
     p0 = np.asarray(_pack(cams))
-    ms, tc, tp0 = MatchSet.from_numpy(**arrays), _port_cams(cams), torch.tensor(p0.reshape(-1))
+    ms, tc = MatchSet.from_numpy(**arrays), _port_cams(cams)
+    tp0 = lm.pack(tc)
     p, err = sharded_ba_step(mesh11, ms, tc, tp0, 1e-3)
     e0 = float(jobj(jnp.asarray(p0)))
     assert float(err) == pytest.approx(e0, rel=1e-4)
-    obj, free = make_objective(ms, tc), _free_mask(2, tp0, True)
-    dense = tp0 - _lm_solve(hessian(obj)(tp0), grad(obj)(tp0) * free, torch.tensor(1e-3),
-                            free) * free
+    obj, free = make_objective(ms, tc), lm.free_params(2, tp0, True)
+    dense = tp0 - lm.damped_solve(hessian(obj)(tp0), grad(obj)(tp0), torch.tensor(1e-3), free)
     np.testing.assert_allclose(p.numpy(), dense.numpy(), rtol=1e-4, atol=1e-7)
     np.testing.assert_array_equal(p.numpy()[:6], p0.reshape(-1)[:6])
 

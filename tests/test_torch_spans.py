@@ -213,24 +213,72 @@ def test_do_bundle_adjust_counts_the_column_path(runs):
     assert (steps["two_view_calls"], steps["column_cameras"]) == (two, two)
 
 
-@pytest.mark.parametrize("mode", ["lm", "newton", "reference"])
-def test_accepted_is_the_strict_decreases_of_the_error_history(mode):
-    """On the pair's filtered matches from its first cameras."""
-    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust_two_view
-    from ssrlcv_tpu_torch.io.images import cameras_from_refimages
+def _adjust(case):
+    """Bundle adjustment on one thread of the filtered matches of the pair
+    (of the triple for "nview") from their first cameras: 2-view in mode
+    ``case``, N-view, or the sharded 2-view LM over a 1 x 1 gloo mesh."""
+    import torch.distributed as dist
 
-    _, scene, off, *_ = _runs(2)
+    from ssrlcv_tpu_torch.ba.nview import bundle_adjust_nview
+    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust_two_view
+    from ssrlcv_tpu_torch.config import BAParams
+    from ssrlcv_tpu_torch.io.images import cameras_from_refimages
+    from ssrlcv_tpu_torch.parallel import mesh as pm
+    from ssrlcv_tpu_torch.parallel.sharded import sharded_bundle_adjust
+
+    _, scene, off, *_ = _runs(3 if case == "nview" else 2)
+    cams = cameras_from_refimages(scene.images, "cpu")
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    created = case == "sharded" and pm.initialize_single("gloo")
     try:
-        r = bundle_adjust_two_view(off.matches, cameras_from_refimages(scene.images, "cpu"),
-                                   iterations=ITERATIONS, mode=mode)
+        if case == "nview":
+            return bundle_adjust_nview(off.matches, cams, BAParams(iterations=ITERATIONS))
+        if case == "sharded":
+            return sharded_bundle_adjust(pm.make_mesh(1, 1, device_type="cpu"), off.matches,
+                                         cams, iterations=ITERATIONS)
+        return bundle_adjust_two_view(off.matches, cams, iterations=ITERATIONS, mode=case)
     finally:
+        if created:
+            dist.destroy_process_group()
         torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("case", ["lm", "newton", "reference", "nview", "sharded"])
+def test_accepted_is_the_strict_decreases_of_the_error_history(case):
+    r = _adjust(case)
     hist = r.error_history.numpy()
+    assert hist.shape == (ITERATIONS + 1,) and hist[0] == float(r.initial_error)
     assert r.accepted.dtype == torch.int64 and r.accepted.shape == ()
     assert int(r.accepted) == int(np.sum(hist[1:] < hist[:-1]))
-    if mode == "lm":
+    if case in ("lm", "nview", "sharded"):
         assert int(r.accepted) > 0
-    if mode == "reference":  # never applies an update
+    if case == "reference":  # never applies an update
         assert int(r.accepted) == 0
+    assert r.column_cameras is (case != "nview")
+
+
+def test_sharded_ba_opens_the_spans_of_two_view_ba():
+    """Over a 1 x 1 mesh the sharded LM opens the ba.* spans of the
+    single-device LM on the same tracks, in the same order, and takes the
+    same steps."""
+    from ssrlcv_tpu_torch.logging import logger
+
+    def traced(case):
+        calls = []
+
+        def listener(name, begin):
+            calls.append((name, begin))
+
+        logger.add_span_listener(listener)
+        try:
+            return calls, _adjust(case)
+        finally:
+            logger.remove_span_listener(listener)
+
+    (single, r1), (sharded, r2) = traced("lm"), traced("sharded")
+    assert sharded == single
+    opened = [name for name, begin in single if begin]
+    assert opened[0] == "stage.ba.setup" and opened[-1] == "stage.ba.final"
+    assert opened.count("stage.ba.iteration") == ITERATIONS
+    assert torch.equal(r2.error_history, r1.error_history)
