@@ -13,15 +13,27 @@ fails after iteration 0 (the reference leaves its loop there): the loop goes
 on, takes nothing, and the history's later entries keep the initial error.
 No host synchronisation; ``accepted`` counts the steps taken.
 
-Spans: ``ba.setup``, each ``ba.iteration`` with its ``ba.grad``,
-``ba.hessian``, ``ba.solve`` and ``ba.objective`` (the candidate's error),
-and ``ba.final`` (the last triangulation); none inside a function that
-``torch.func`` transforms.  A sharded problem sums the gradient and Hessian
-over its ranks between ``ba.hessian`` and ``ba.solve``.
+On the card, a call that runs an iteration captures its problem's ``grad``
+and ``hessian`` once, as two CUDA graphs on a buffer of the state's shape
+(``graphed``), and every iteration copies its state into that buffer and
+replays them: the same kernels on the same shapes, so the same results to
+the bit, for one host dispatch a call.  The solve, the candidate's error,
+the sums over ranks and the loop's bookkeeping stay eager; the graphs and
+their memory pool are released when the loop ends.  CPU tensors, and a
+problem whose derivatives wait for the card (not ``capturable``), take them
+eagerly.
+
+Spans: ``ba.setup`` (with ``ba.capture`` where the graphs are captured),
+each ``ba.iteration`` with its ``ba.grad``, ``ba.hessian``, ``ba.solve``
+and ``ba.objective`` (the candidate's error), and ``ba.final`` (the last
+triangulation); none inside a function that ``torch.func`` transforms or a
+graph captures.  A sharded problem sums the gradient and Hessian over its
+ranks between ``ba.hessian`` and ``ba.solve``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple
 
 import torch
@@ -75,6 +87,7 @@ class BAResult(NamedTuple):
     error_history: torch.Tensor   # (iterations+1,)
     accepted: torch.Tensor        # () int64: the steps taken
     column_cameras: bool = False  # 2-view: the objective reached the cameras by view column
+    graphed: bool = False         # the derivatives replayed CUDA graphs
 
 
 def _one_rank(g, H):
@@ -91,6 +104,62 @@ class Problem(NamedTuple):
     freeze: bool       # stop at the first failed step after iteration 0
     column_cameras: bool = False
     summed: Callable = _one_rank  # (g, H) -> both summed over the ranks' shards
+    # False where a derivative waits for the card, which no CUDA graph can hold
+    capturable: bool = True
+    graphed: bool = False         # grad and hessian replay CUDA graphs (``graphed``)
+
+
+# the side stream each device's captures run on, kept for the process: the
+# allocator caches freed memory by the stream that allocated it, and a new
+# stream a call reserved 2 MiB more with each call
+_capture_streams: dict = {}
+
+
+class _Replay:
+    """``fn`` captured once as a CUDA graph on the buffer ``x``, its
+    memory in ``pool``: each call copies the state into ``x``, replays the
+    graph and returns its output, which the next call overwrites."""
+
+    def __init__(self, fn: Callable, x: torch.Tensor, pool):
+        stream = _capture_streams.get(x.device)
+        if stream is None:
+            stream = _capture_streams[x.device] = torch.cuda.Stream(x.device)
+        self.x, self.graph = x, torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool.id)
+            try:
+                self.out = fn(x)
+            finally:
+                self.graph.capture_end()
+
+    def __call__(self, p: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(p)
+        self.graph.replay()
+        return self.out
+
+    def release(self):
+        self.graph = self.out = None
+
+
+@contextlib.contextmanager
+def graphed(problem: Problem, p0: torch.Tensor, iterations: int):
+    """``problem`` with its ``grad`` and ``hessian`` replaying CUDA graphs
+    captured at ``p0``'s shape; ``problem`` itself on the CPU, for a loop of
+    no iteration, or where it is not ``capturable``.  On exit the graphs,
+    their outputs and their memory pool are released."""
+    if p0.device.type != "cuda" or iterations < 1 or not problem.capturable:
+        yield problem
+        return
+    with logger.span("ba.capture"), torch.cuda.device(p0.device):
+        pool, x = torch.cuda.MemPool(), p0.clone()
+        grad, hessian = _Replay(problem.grad, x, pool), _Replay(problem.hessian, x, pool)
+    try:
+        yield problem._replace(grad=grad, hessian=hessian, graphed=True)
+    finally:
+        # the graphs and what they hold first, so the pool's memory is free
+        grad.release()
+        hessian.release()
+        del pool
 
 
 def derivatives(problem: Problem, p: torch.Tensor):
@@ -107,8 +176,8 @@ def levenberg_marquardt(problem: Problem, p0: torch.Tensor, free: FreeParams, it
     best, best_err = p0, problem.initial_error
     hist = best_err.repeat(iterations + 1)
     accepted = torch.zeros((), dtype=torch.int64, device=p0.device)
-    lam = torch.tensor(1e-3, dtype=p0.dtype, device=p0.device)
-    done = torch.tensor(False, device=p0.device) if problem.freeze else None
+    lam = torch.full((), 1e-3, dtype=p0.dtype, device=p0.device)
+    done = torch.zeros((), dtype=torch.bool, device=p0.device) if problem.freeze else None
     for i in range(iterations):
         with logger.span("ba.iteration"):
             g, H = derivatives(problem, best)
@@ -135,15 +204,17 @@ def adjust(cameras: Cameras, setup: Callable, iterations: int, fix_camera0: bool
            loop: Callable = levenberg_marquardt) -> BAResult:
     """Bundle adjustment of ``cameras``: ``setup(p0)`` makes the ``Problem``
     at their state ``p0``, ``loop(problem, p0, free, iterations)`` steps it
-    (Levenberg-Marquardt unless given another), and the cloud is the
-    problem's triangulation at the cameras of the best state."""
-    with logger.span("ba.setup"):
-        p0 = pack(cameras)
-        free = free_params(cameras.num_cameras, p0, fix_camera0)
-        problem = setup(p0)
-    best, best_err, hist, accepted = loop(problem, p0, free, iterations)
+    (Levenberg-Marquardt unless given another) with its derivatives
+    ``graphed``, and the cloud is the problem's triangulation at the cameras
+    of the best state."""
+    with contextlib.ExitStack() as graphs:
+        with logger.span("ba.setup"):
+            p0 = pack(cameras)
+            free = free_params(cameras.num_cameras, p0, fix_camera0)
+            problem = graphs.enter_context(graphed(setup(p0), p0, iterations))
+        best, best_err, hist, accepted = loop(problem, p0, free, iterations)
     with logger.span("ba.final"):
         out = unpack(cameras, best)
         cloud = problem.cloud(out)
     return BAResult(out, cloud, problem.initial_error, best_err, hist, accepted,
-                    problem.column_cameras)
+                    problem.column_cameras, problem.graphed)

@@ -12,7 +12,8 @@ drops out of the sum, so rotating cameras until rays are parallel "wins".
 A candidate that loses valid tracks therefore pays 1e6 per track lost; the
 penalty is piecewise constant, so it only vetoes a step.  A step whose error
 is not finite is never taken either.  The loop is ``ba.lm``'s, with no
-freeze; the initial error carries no penalty.
+freeze; the initial error carries no penalty.  Its derivatives stay eager
+on the card: no CUDA graph captures them (the problem's ``capturable``).
 """
 
 from __future__ import annotations
@@ -42,8 +43,11 @@ def bundle_adjust_nview(matches: MatchSet, cameras: Cameras, params: BAParams) -
             e, nv = raw(p)
             return e + 1e6 * torch.clamp(n_valid0 - nv, min=0.0)
 
+        # not capturable: under torch.func the triangulation's solve is
+        # differentiated with grad mode on, where PyTorch re-solves with
+        # the checked torch.linalg.solve, which waits for the card
         return lm.Problem(init_err, error, grad(objective), hessian(objective),
                           cloud=lambda cams: n_view_triangulate(generate_bundles(matches, cams))[0],
-                          freeze=False)
+                          freeze=False, capturable=False)
 
     return lm.adjust(cameras, setup, params.iterations, params.fixed_camera)

@@ -92,8 +92,8 @@ def _newton(initial_alpha: float, svd_rcond: float, problem: lm.Problem, p0: tor
     best, best_err = p0, problem.initial_error
     hist = best_err.repeat(iterations + 1)
     accepted = torch.zeros((), dtype=torch.int64, device=p0.device)
-    alpha = torch.tensor(initial_alpha, dtype=p0.dtype, device=p0.device)
-    done = torch.tensor(False, device=p0.device)
+    alpha = torch.full((), initial_alpha, dtype=p0.dtype, device=p0.device)
+    done = torch.zeros((), dtype=torch.bool, device=p0.device)
     for i in range(iterations):
         with logger.span("ba.iteration"):
             g, H = lm.derivatives(problem, best)

@@ -44,10 +44,9 @@ def _masked_safe_lines(bundles: Bundles):
     their 0/0 never reaches a gradient (0 * nan = nan would poison BA).
     Valid tracks pass through untouched."""
     m = bundles.mask[:, None]
-    dt, dev = bundles.vec.dtype, bundles.vec.device
-    e1 = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev)
-    e2 = torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev)
-    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev)
+    # made on the device: a tensor copied from the host would wait for the
+    # card, and no CUDA graph can capture it
+    e1, e2, e3 = torch.eye(3, dtype=bundles.vec.dtype, device=bundles.vec.device)
     l1_vec = torch.where(m, bundles.vec[:, 0], e1)
     l2_vec = torch.where(m, bundles.vec[:, 1], e2)
     l1_pnt = torch.where(m, bundles.pnt[:, 0], 0.0)
@@ -96,7 +95,9 @@ def n_view_triangulate(bundles: Bundles, reference_error_mode: bool = False):
 
     ok = torch.abs(torch.linalg.det(S.detach())) > 1e-20
     S_safe = torch.where(ok[:, None, None], S, eye)
-    point = torch.linalg.solve(S_safe, C[..., None]).squeeze(-1)
+    # solve_ex: solve's arithmetic without its check of the singular
+    # systems, which ``ok`` has taken out, and which waits for the card
+    point = torch.linalg.solve_ex(S_safe, C[..., None])[0].squeeze(-1)
     point = torch.where(ok[:, None], point, 0.0)
 
     p1 = pnt

@@ -243,6 +243,7 @@ def do_bundle_adjust(state: PipelineState) -> PipelineState:
     state.ba_error = (e0, e1)
     iterations = state.config.ba.iterations
     do_bundle_adjust.iterations += iterations
+    do_bundle_adjust.graphed_iterations += iterations if result.graphed else 0
     do_bundle_adjust.accepted += int(accepted)
     do_bundle_adjust.two_view_calls += int(_two_view(state))
     do_bundle_adjust.column_cameras += int(result.column_cameras)
@@ -252,9 +253,11 @@ def do_bundle_adjust(state: PipelineState) -> PipelineState:
     return state
 
 
-# LM iterations run and steps accepted by every do_bundle_adjust call; its
-# 2-view calls, and those whose objective reached the cameras by view column
+# LM iterations run, those whose derivatives replayed CUDA graphs, and steps
+# accepted by every do_bundle_adjust call; its 2-view calls, and those whose
+# objective reached the cameras by view column
 do_bundle_adjust.iterations = 0
+do_bundle_adjust.graphed_iterations = 0
 do_bundle_adjust.accepted = 0
 do_bundle_adjust.two_view_calls = 0
 do_bundle_adjust.column_cameras = 0

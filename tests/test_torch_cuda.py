@@ -11,6 +11,8 @@ test_torch_kernels.py, which holds the same plain versions against the JAX
 package on the CPU.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1144,3 +1146,144 @@ def test_cuda_ba_objective_by_view_column(cuda_device):
     column = _kernels(lambda: (grad_fn(p0), hess_fn(p0)))
     assert column and not [k for k in column if "indexing_backward" in k]
     assert [k for k in _kernels(lambda: row_grad(p0)) if "indexing_backward" in k]
+
+
+BA_SCENES = [2147700000 + 17 * i for i in range(8)]  # benchmark scene seeds
+
+
+@pytest.fixture(scope="module")
+def ba_inputs(tmp_path_factory):
+    """(filtered tracks, cameras) of 8 benchmark scenes at 512^2: each
+    scene's pair through stages 0-4 of ``pair2v``, its triple through those
+    of ``triple3v``, on the card."""
+    import json
+    import os
+
+    from benchmark.harness import Program
+    from benchmark.scene import make_scene
+    from ssrlcv_tpu_torch.io.images import cameras_from_refimages
+    from ssrlcv_tpu_torch.pipeline import stages as T
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for views, name in ((2, "pair2v"), (3, "triple3v")):
+        with open(os.path.join(root, "benchmark", "configs", f"{name}.json")) as f:
+            program = Program(json.load(f), dev)
+        cfg = program.config.replace(output_dir=str(tmp_path_factory.mktemp(name)))
+        out[views] = []
+        for seed in BA_SCENES:
+            scene = make_scene(seed, 512, views, dev)
+            images = program.images(scene.views)
+            state = T.PipelineState(config=cfg, images=images, device=dev)
+            state.seed_features = program._sift(scene.seed.pixels, cfg.sift, -1, device=dev)
+            for stage in (T.do_feature_generation, T.do_feature_matching, T.do_triangulation,
+                          T.do_filtering):
+                state = stage(state)
+            out[views].append((state.matches, cameras_from_refimages(images, dev)))
+    return out
+
+
+def _mixed_parents(matches):
+    """The pair's tracks with the two slots of every other row swapped, so
+    each view column mixes both cameras: the objective's row gather."""
+    swap = torch.zeros(matches.capacity, dtype=torch.bool, device=matches.mask.device)
+    swap[1::2] = True
+    return matches.replace(kp_loc=torch.where(swap[:, None, None], matches.kp_loc.flip(1),
+                                              matches.kp_loc),
+                           kp_parent=torch.where(swap[:, None], matches.kp_parent.flip(1),
+                                                 matches.kp_parent))
+
+
+def _adjust_case(case, matches, cams):
+    from ssrlcv_tpu_torch.ba.nview import bundle_adjust_nview
+    from ssrlcv_tpu_torch.ba.two_view import bundle_adjust_two_view
+    from ssrlcv_tpu_torch.config import BAParams
+
+    if case == "nview":
+        return bundle_adjust_nview(matches, cams, BAParams())
+    if case == "row_gather":
+        matches = _mixed_parents(matches)
+    return bundle_adjust_two_view(matches, cams, mode="newton" if case == "newton" else "lm")
+
+
+def _live_graphs():
+    import gc
+
+    gc.collect()
+    return [o for o in gc.get_objects() if isinstance(o, torch.cuda.CUDAGraph)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lm", "row_gather", "newton", "nview"])
+def test_cuda_graphed_ba_equals_eager(case, ba_inputs, cuda_device, monkeypatch):
+    """On 8 scenes, BA with its gradient and Hessian replayed from CUDA
+    graphs (``lm.graphed``) against the same BA with the problem's own
+    eager ``grad`` and ``hessian``: every field of ``BAResult`` equal byte
+    for byte, and the replays equal to the eager derivatives at the first
+    state and at a step from it.  ``graphed`` is true, and no graph or its
+    memory outlives the call.  N-view BA's problem is not ``capturable``
+    (its torch.func derivative re-solves with the checked
+    ``torch.linalg.solve``): it stays eager, ``graphed`` false."""
+    from ssrlcv_tpu_torch.ba import lm
+
+    def eager(problem, p0, iterations):
+        return contextlib.nullcontext(problem)
+
+    captured = lm.graphed
+
+    @contextlib.contextmanager
+    def checked(problem, p0, iterations):
+        with captured(problem, p0, iterations) as g:
+            if case == "nview":
+                assert g is problem and not problem.capturable
+                yield g
+                return
+            assert g.graphed and not problem.graphed
+            step = torch.zeros_like(p0)
+            step[-6:] = torch.tensor([1e-3, -2e-3, 1e-3, 1e-5, -2e-5, 3e-5])
+            for p in (p0, p0 + step):
+                for name in ("grad", "hessian"):
+                    got = getattr(g, name)(p).clone()
+                    assert torch.equal(got, getattr(problem, name)(p)), name
+            yield g
+
+    views = 3 if case == "nview" else 2
+    for k, (matches, cams) in enumerate(ba_inputs[views]):
+        monkeypatch.setattr(lm, "graphed", eager)
+        want = _adjust_case(case, matches, cams)
+        monkeypatch.setattr(lm, "graphed", checked)
+        got = _adjust_case(case, matches, cams)
+        assert got.graphed is (case != "nview") and not want.graphed
+        _assert_same_result(got, want, f"{case}, scene {k}")
+        # a second call reserves nothing more: the first one's graph pool
+        # went back to the device
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved(cuda_device)
+        again = _adjust_case(case, matches, cams)
+        torch.cuda.synchronize()
+        assert not _live_graphs()
+        assert torch.cuda.memory_reserved(cuda_device) <= reserved, f"{case}, scene {k}"
+        _assert_same_result(again, want, f"{case}, scene {k}, again")
+
+
+def _assert_same_result(got, want, where):
+    """Every field of two ``BAResult``s but ``graphed`` equal byte for
+    byte."""
+    from ssrlcv_tpu_torch.ba import lm
+
+    for field in lm.BAResult._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        if field == "graphed":
+            continue
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and a.shape == b.shape, f"{where}: {field}"
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(), f"{where}: {field}"
+        elif hasattr(a, "to_numpy"):
+            for name, x in a.to_numpy().items():
+                y = b.to_numpy()[name]
+                assert x.tobytes() == y.tobytes(), f"{where}: {field}.{name}"
+        else:
+            assert a == b, f"{where}: {field}"

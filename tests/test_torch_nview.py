@@ -288,3 +288,54 @@ def test_bundle_adjust_nview_matches_jax(camera0):
         assert j1 == j0 and t1 == t0
         np.testing.assert_array_equal(tr.cameras.cam_rot.numpy(), np.asarray(cams.cam_rot))
     assert tr.cloud.mask.sum() == 300
+
+
+def _with_singular_tracks(bundles):
+    """``bundles`` with tracks appended whose least-squares system is
+    singular: one view, two parallel rays along an axis, no view at all."""
+    from ssrlcv_tpu_torch.core.types import Bundles
+
+    # no ray passes through the origin, where a masked track's point lies
+    vec = torch.tensor([0.0, 1.0, 0.0]).repeat(3, 3, 1)
+    pnt = torch.tensor([5.0, -7.0, 11.0]).repeat(3, 3, 1)
+    vec[0, 0] = torch.tensor([1.0, 0.0, 0.0])
+    vec[1, :2] = torch.tensor([0.0, 0.0, 1.0])
+    pnt[1, 1] = torch.tensor([8.0, -7.0, 11.0])
+    return Bundles(vec=torch.cat([bundles.vec, vec]), pnt=torch.cat([bundles.pnt, pnt]),
+                   num_views=torch.cat([bundles.num_views,
+                                        torch.tensor([1, 2, 0], dtype=torch.int32)]),
+                   mask=torch.cat([bundles.mask, torch.tensor([True, True, False])]))
+
+
+@pytest.mark.parametrize("singular", [False, True], ids=["rig", "singular_tracks"])
+def test_n_view_triangulate_equals_its_checked_solve(singular, monkeypatch):
+    """``n_view_triangulate`` solves with ``torch.linalg.solve_ex``, which
+    waits for no check of the solution: its cloud, total and the total's
+    gradient over the rays equal those of ``torch.linalg.solve`` to the bit,
+    on the rig's tracks and on tracks whose system is singular (masked
+    before the solve)."""
+    from torch.func import grad
+
+    from ssrlcv_tpu_torch.core.types import Cameras
+    from ssrlcv_tpu_torch.geometry.bundles import generate_bundles
+    from ssrlcv_tpu_torch.geometry.triangulation import n_view_triangulate
+
+    cams, arrays = _rig()
+    _, tms = _both(arrays)
+    bundles = generate_bundles(tms, _port(cams, Cameras))
+    if singular:
+        bundles = _with_singular_tracks(bundles)
+
+    def run():
+        pc, total = n_view_triangulate(bundles)
+        d_vec = grad(lambda v: n_view_triangulate(bundles.replace(vec=v))[1])(bundles.vec)
+        return pc.points, pc.errors, pc.mask, total, d_vec
+
+    got = run()
+    monkeypatch.setattr(torch.linalg, "solve_ex",
+                        lambda A, B: (torch.linalg.solve(A, B), None))
+    want = run()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    mask = got[2]
+    assert int(mask.sum()) == 300 and not bool(mask[-3:].any())

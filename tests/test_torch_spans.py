@@ -17,7 +17,7 @@ import pytest
 import torch
 
 ITERATIONS = 10  # BAParams().iterations, the pipeline's
-COUNTERS = ("iterations", "accepted", "two_view_calls", "column_cameras")
+COUNTERS = ("iterations", "graphed_iterations", "accepted", "two_view_calls", "column_cameras")
 
 
 def _user_ranges(prof):
@@ -213,6 +213,13 @@ def test_do_bundle_adjust_counts_the_column_path(runs):
     assert (steps["two_view_calls"], steps["column_cameras"]) == (two, two)
 
 
+def test_do_bundle_adjust_counts_no_graphed_iteration_on_the_cpu(runs):
+    """CPU tensors take BA's derivatives eagerly: every iteration counts,
+    none as graphed."""
+    *_, steps, _ = runs
+    assert (steps["iterations"], steps["graphed_iterations"]) == (ITERATIONS, 0)
+
+
 def _adjust(case):
     """Bundle adjustment on one thread of the filtered matches of the pair
     (of the triple for "nview") from their first cameras: 2-view in mode
@@ -282,3 +289,30 @@ def test_sharded_ba_opens_the_spans_of_two_view_ba():
     assert opened[0] == "stage.ba.setup" and opened[-1] == "stage.ba.final"
     assert opened.count("stage.ba.iteration") == ITERATIONS
     assert torch.equal(r2.error_history, r1.error_history)
+
+
+@pytest.mark.parametrize("case", ["lm", "newton", "reference", "nview", "sharded"])
+def test_ba_on_the_cpu_captures_no_graph(case):
+    """Every BA on CPU tensors takes its derivatives eagerly: its result is
+    not ``graphed`` and it opens no ``ba.capture`` span; ``lm.graphed``
+    hands a problem on the CPU back as it is."""
+    from ssrlcv_tpu_torch.ba import lm
+    from ssrlcv_tpu_torch.logging import logger
+
+    calls = []
+
+    def listener(name, begin):
+        calls.append(name)
+
+    logger.add_span_listener(listener)
+    try:
+        r = _adjust(case)
+    finally:
+        logger.remove_span_listener(listener)
+    assert r.graphed is False
+    assert "stage.ba.setup" in calls and "stage.ba.capture" not in calls
+    problem = lm.Problem(r.initial_error, None, None, None, None, freeze=False)
+    p0 = torch.zeros(12)
+    for iterations in (0, ITERATIONS):
+        with lm.graphed(problem, p0, iterations) as same:
+            assert same is problem
