@@ -17,7 +17,9 @@ Phases (each fails the run by raising; nothing falls back to the CPU):
      K3 and its plain version; K6 at the patch-gather benchmark's shapes
      (ssrlcv_tpu_torch.bench.gather_patches); the blur kernel
      (csrc/blur.cu) over octave 0's blur chain of image 0 (2048^2, the six
-     tap counts), bit-identical to its plain version; tolerances below;
+     tap counts), bit-identical to its plain version; the detection kernels
+     (csrc/detect.cu) on every octave of image 0, bit-identical to the plain
+     chain; tolerances below;
   3. the 2-view main path through ssrlcv_tpu_torch.pipeline.stages on
      cuda:0 (seed SIFT + run_pipeline), with per-stage CUDA-event times, the
      reconstruction's own checks (points, BA error, distance to the scene's
@@ -239,7 +241,7 @@ def phase_kernels_features(scene, dev):
     from ssrlcv_tpu_torch.features.desc_kernel import (descriptor_histograms,
                                                        descriptor_histograms_plain)
     from ssrlcv_tpu_torch.features.descriptor import descriptor_epilogue, fill_descriptors
-    from ssrlcv_tpu_torch.features.detector import check_descriptor_border, find_keypoints_octave
+    from ssrlcv_tpu_torch.features.detector import find_keypoints_octave
     from ssrlcv_tpu_torch.features.orient_kernel import (orientation_histograms,
                                                          orientation_histograms_plain)
     from ssrlcv_tpu_torch.features.orientation import (_histogram_for_keypoints,
@@ -253,9 +255,7 @@ def phase_kernels_features(scene, dev):
     octave = ss.build_scale_space(px, params, SIZE, SIZE)[0]
     sigmas = tuple(ss.octave_sigmas(params, 0))[: params.blurs_per_octave - 1]
     kps = find_keypoints_octave(octave.dog_raw, octave.dog_norm, sigmas, params,
-                                octave_capacity(params, 0, SIZE, SIZE))
-    kps = check_descriptor_border(kps, tuple(octave.dog_raw.shape[1:]),
-                                  params.descriptor_contrib_width, octave.pixel_width)
+                                octave_capacity(params, 0, SIZE, SIZE), octave.pixel_width)
     gx_all, gy_all = ops.pixel_gradients(octave.dog_norm)
     pw = octave.pixel_width
     lam_o, lam_d = params.orientation_contrib_width, params.descriptor_contrib_width
@@ -415,6 +415,64 @@ def phase_kernels_blur(scene, dev):
                       for k, v in rec["by_taps"].items()))
     return {"convolve_separable_symmetric": {"max_abs_err": 0.0, **rec, **b,
                                              "library_ms": None}}
+
+
+def phase_kernels_detect(scene, dev):
+    """The detection kernels against the plain chain (find_keypoints_octave_plain,
+    then check_descriptor_border) on every octave of image 0: every slot of
+    the capacity equal to the bit, deterministic; the extrema and the
+    keypoint kernel timed alone.  Returns its record."""
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features import detect_kernel as DK
+    from ssrlcv_tpu_torch.features import detector as D
+    from ssrlcv_tpu_torch.features import scale_space as ss
+    from ssrlcv_tpu_torch.features.sift import octave_capacity
+
+    params = SIFTParams()
+    px = torch.as_tensor(scene.images[0].pixels, device=dev)
+    thr = params.noise_threshold * 0.8
+    rec = {"ms": 0.0, "plain_ms": 0.0, "io": 0, "keypoints": 0, "by_octave": {}}
+    for o, octave in enumerate(ss.build_scale_space(px, params, SIZE, SIZE)):
+        raw, norm, pw = octave.dog_raw, octave.dog_norm, octave.pixel_width
+        sigmas = tuple(ss.octave_sigmas(params, o))[: params.blurs_per_octave - 1]
+        cap = octave_capacity(params, o, SIZE, SIZE)
+        same, got = _same_twice(
+            lambda: tuple(D.find_keypoints_octave(raw, norm, sigmas, params, cap, pw)))
+        if not same:
+            fail(f"the detection kernels are not deterministic (octave {o})")
+
+        def plain():
+            kps = D.find_keypoints_octave_plain(raw, norm, sigmas, params, cap)
+            return D.check_descriptor_border(kps, tuple(raw.shape[1:]),
+                                             params.descriptor_contrib_width, pw)
+
+        if not all(torch.equal(a, b) for a, b in zip(got, plain())):
+            fail(f"the detection kernels differ from the plain chain (octave {o})")
+        flags = DK.extrema_flags(raw, thr)
+        found = torch.nonzero(flags).squeeze(1)[:cap].contiguous()
+        ext_ms = cuda_ms(lambda: DK.extrema_flags(raw, thr), 20, "detect extrema")
+        kp_ms = cuda_ms(lambda: DK.keypoint_slots(raw, norm, found, sigmas, params, cap, pw), 20,
+                        "detect keypoints")
+        plain_ms = cuda_ms(plain, 2, "detect plain")
+        # dog_raw read once, the flags written, the kept extrema read, the
+        # slots written (blur 8, loc 8, intensity, sigma, theta 4 each, mask 1)
+        io = _nbytes(raw, flags, found) + cap * 29
+        kept = int(got[5].sum())
+        rec["by_octave"][o] = {"extrema_ms": ext_ms, "keypoints_ms": kp_ms, "plain_ms": plain_ms,
+                               "extrema": int(flags.sum()), "slots": cap, "keypoints": kept,
+                               **bound(io, 0, "fp32")}
+        rec["ms"] += ext_ms + kp_ms
+        rec["plain_ms"] += plain_ms
+        rec["io"] += io
+        rec["keypoints"] += kept
+    b = bound(rec.pop("io"), 0, "fp32")
+    print(f"[kernels] detect: {len(rec['by_octave'])} octaves of image 0, bit-identical; "
+          f"{rec['ms']:.4f} ms (device, both kernels) vs plain {rec['plain_ms']:.3f} ms; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); by octave (extrema / keypoints / bound / "
+          "plain ms) " + ", ".join(
+              f"{o}: {v['extrema_ms']:.4f} / {v['keypoints_ms']:.4f} / {v['bound_ms']:.4f} / "
+              f"{v['plain_ms']:.3f}" for o, v in rec["by_octave"].items()))
+    return {"detect_keypoints": {"max_abs_err": 0.0, **rec, **b, "library_ms": None}}
 
 
 def _check_k4(name, k4, k3, plain):
@@ -630,6 +688,7 @@ def phase_main_path(scene, dev):
     from ssrlcv_tpu_torch.config import MatchParams, PipelineConfig, SIFTParams
     from ssrlcv_tpu_torch.io import ply
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.detect_kernel import detect_keypoints
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
     from ssrlcv_tpu_torch.features.sift import generate_features
     from ssrlcv_tpu_torch.geometry.triangulation import triangulate_matches
@@ -641,7 +700,7 @@ def phase_main_path(scene, dev):
     cfg = PipelineConfig(output_dir=out_dir).replace(
         match=MatchParams(epsilon=25.0, delta=5.0), sift=SIFTParams())
     counters = (orientation_histograms, descriptor_histograms, best_target,
-                convolve_separable_symmetric)
+                convolve_separable_symmetric, detect_keypoints)
     for fn in counters:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1872,14 +1931,16 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
 
     from ssrlcv_tpu_torch.features.desc_kernel import descriptor_histograms
+    from ssrlcv_tpu_torch.features.detect_kernel import detect_keypoints
     from ssrlcv_tpu_torch.features.orient_kernel import orientation_histograms
     from ssrlcv_tpu_torch.matching.match_kernel import best_target
     from ssrlcv_tpu_torch.ops.image_ops import convolve_separable_symmetric
 
     counters = (orientation_histograms, descriptor_histograms, best_target,
-                convolve_separable_symmetric)
+                convolve_separable_symmetric, detect_keypoints)
     recs = {**phase_kernels_features(scene, dev), **phase_kernels_blur(scene, dev),
-            **phase_kernels_match(scene, dev), **phase_gather(dev)}
+            **phase_kernels_detect(scene, dev), **phase_kernels_match(scene, dev),
+            **phase_gather(dev)}
     by_phase = {}
     by_phase["3"], main_state = phase_main_path(scene, dev)
     by_phase["3b"], k4_brute = phase_brute(scene, dev)
@@ -1921,6 +1982,8 @@ def main():
         "patch_row_sums": ("csrc/gather.cu", "scripts/bench_gather2.py:139"),
         "convolve_separable_symmetric": (
             "csrc/blur.cu", "none: ssrlcv_tpu/ops/image_ops.py:136 leaves the blur to XLA"),
+        "detect_keypoints": (
+            "csrc/detect.cu", "none: ssrlcv_tpu/features/detector.py is XLA operations"),
     }
     kernels = [{"name": name, "route": "cuda", "source": f"ssrlcv_tpu_torch/{src}",
                 "replaces": rep, **recs[name]}

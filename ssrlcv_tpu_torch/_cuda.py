@@ -41,6 +41,9 @@ _SIGNATURES = {
     "ssrlcv_extract_patches": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ssrlcv_patch_row_sums": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
     "ssrlcv_blur_separable": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    "ssrlcv_detect_extrema": [_P, _P, _I, _I, _I, _F, _P],
+    "ssrlcv_detect_keypoints": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _F, _F,
+                                _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

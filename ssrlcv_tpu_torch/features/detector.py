@@ -4,6 +4,10 @@ Counterpart of ``ssrlcv_tpu/features/detector.py``.  Keypoints live in a
 fixed-capacity masked struct-of-arrays; each rejection pass clears mask bits.
 The Newton refinement keeps the reference's non-standard diagonal Hessian
 (H00 = g0 - 2*M) and the edge test its un-divided off-diagonal term.
+
+``find_keypoints_octave`` takes the plain chain below for CPU tensors and,
+for CUDA tensors, the two kernels of ``csrc/detect.cu``
+(``detect_kernel.detect_keypoints``), equal to it bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ssrlcv_tpu_torch.config import SIFTParams
+from ssrlcv_tpu_torch.features.detect_kernel import detect_keypoints
 
 
 class SSKeyPoints(NamedTuple):
@@ -249,8 +254,8 @@ def check_descriptor_border(kps: SSKeyPoints, image_size: tuple[int, int],
     return kps._replace(mask=keep)
 
 
-def find_keypoints_octave(dog_raw: torch.Tensor, dog_norm: torch.Tensor, sigmas: tuple,
-                          params: SIFTParams, capacity: int) -> SSKeyPoints:
+def find_keypoints_octave_plain(dog_raw: torch.Tensor, dog_norm: torch.Tensor, sigmas: tuple,
+                                params: SIFTParams, capacity: int) -> SSKeyPoints:
     """Per-octave detection in reference order: extrema(raw) with the 0.8t
     noise rejection fused in -> subpixel refine(norm) -> noise(t, refined
     intensity) -> edges(norm)."""
@@ -265,3 +270,22 @@ def find_keypoints_octave(dog_raw: torch.Tensor, dog_norm: torch.Tensor, sigmas:
         )
         kps = remove_noise(kps, params.noise_threshold)
     return remove_edges(kps, dog_norm, params.edge_threshold)
+
+
+def find_keypoints_octave(dog_raw: torch.Tensor, dog_norm: torch.Tensor, sigmas: tuple,
+                          params: SIFTParams, capacity: int, pixel_width=None) -> SSKeyPoints:
+    """``find_keypoints_octave_plain``, then, given the octave's
+    ``pixel_width``, ``check_descriptor_border``.  CPU tensors take that
+    chain; CUDA tensors the detection kernels (``csrc/detect.cu``: two
+    launches and one ``torch.nonzero``, bit-identical), which add the extrema
+    past ``capacity`` to ``detect_extrema.dropped`` as the chain does."""
+    if dog_raw.device.type != "cpu":
+        fields, found = detect_keypoints(dog_raw, dog_norm, sigmas, params, capacity,
+                                         pixel_width)
+        detect_extrema.dropped += max(found - capacity, 0)
+        return SSKeyPoints(*fields)
+    kps = find_keypoints_octave_plain(dog_raw, dog_norm, sigmas, params, capacity)
+    if pixel_width is None:
+        return kps
+    return check_descriptor_border(kps, tuple(dog_raw.shape[1:]),
+                                   params.descriptor_contrib_width, pixel_width)

@@ -26,8 +26,7 @@ from ssrlcv_tpu_torch.core.device import as_device_tensor
 from ssrlcv_tpu_torch.core.types import FeatureSet
 from ssrlcv_tpu_torch.features import scale_space as ss
 from ssrlcv_tpu_torch.features.descriptor import fill_descriptors
-from ssrlcv_tpu_torch.features.detector import (check_descriptor_border, detect_extrema,
-                                                find_keypoints_octave)
+from ssrlcv_tpu_torch.features.detector import detect_extrema, find_keypoints_octave
 from ssrlcv_tpu_torch.features.orientation import compute_orientations
 from ssrlcv_tpu_torch.logging import logger
 from ssrlcv_tpu_torch.ops import image_ops as ops
@@ -62,10 +61,8 @@ def detect_octave(octave, params: SIFTParams, o: int, height: int, width: int):
     DoG, refined, then the descriptor-border check."""
     sigmas = tuple(ss.octave_sigmas(params, o))[: params.blurs_per_octave - 1]
     pixel_width = float(2.0 ** (params.starting_octave + o))
-    kps = find_keypoints_octave(octave.dog_raw, octave.dog_norm, sigmas, params,
-                                octave_capacity(params, o, height, width))
-    oh, ow = octave.dog_raw.shape[1], octave.dog_raw.shape[2]
-    return check_descriptor_border(kps, (oh, ow), params.descriptor_contrib_width, pixel_width)
+    return find_keypoints_octave(octave.dog_raw, octave.dog_norm, sigmas, params,
+                                 octave_capacity(params, o, height, width), pixel_width)
 
 
 def _bucket_keypoints(kps, b: int):

@@ -1287,3 +1287,174 @@ def _assert_same_result(got, want, where):
                 assert x.tobytes() == y.tobytes(), f"{where}: {field}.{name}"
         else:
             assert a == b, f"{where}: {field}"
+
+
+# the detection kernels (csrc/detect.cu) against the plain chain: bit for bit
+DETECT_SEED = 2147484711
+
+
+def _same_bytes(a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
+
+
+def _octave_sigmas(params, o):
+    from ssrlcv_tpu_torch.features.scale_space import octave_sigmas
+
+    return tuple(octave_sigmas(params, o))[: params.blurs_per_octave - 1]
+
+
+def _detect_pair(octave, sigmas, params, cap, pixel_width):
+    """The kernels' keypoints of one octave against the plain chain's (then
+    the border check where ``pixel_width`` is given): every field of every
+    slot equal byte for byte, and the extrema each adds to
+    ``detect_extrema.dropped`` equal.  The kernels launch twice and a second
+    call equals the first.  Returns (plain keypoints, extrema dropped)."""
+    from ssrlcv_tpu_torch.features import detector as D
+    from ssrlcv_tpu_torch.features.detect_kernel import detect_keypoints
+
+    n, dropped = detect_keypoints.launches, D.detect_extrema.dropped
+    got = D.find_keypoints_octave(octave.dog_raw, octave.dog_norm, sigmas, params, cap,
+                                  pixel_width)
+    k_drop = D.detect_extrema.dropped - dropped
+    assert detect_keypoints.launches == n + 2
+    again = D.find_keypoints_octave(octave.dog_raw, octave.dog_norm, sigmas, params, cap,
+                                    pixel_width)
+    dropped = D.detect_extrema.dropped
+    plain = D.find_keypoints_octave_plain(octave.dog_raw, octave.dog_norm, sigmas, params, cap)
+    p_drop = D.detect_extrema.dropped - dropped
+    if pixel_width is not None:
+        plain = D.check_descriptor_border(plain, tuple(octave.dog_raw.shape[1:]),
+                                          params.descriptor_contrib_width, pixel_width)
+    for name, a, b, c in zip(D.SSKeyPoints._fields, got, plain, again):
+        assert _same_bytes(a, b), f"{name} differs from the plain chain"
+        assert _same_bytes(a, c), f"{name} differs between two calls"
+    assert k_drop == p_drop
+    return plain, p_drop
+
+
+def _scene_pixels(size, dev):
+    """The views and the seed image of one benchmark scene, as uint8 arrays."""
+    from benchmark.scene import make_scene
+
+    scene = make_scene(DETECT_SEED, size, 2, dev)
+    return [v.pixels for v in scene.views] + [scene.seed.pixels]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1024, 2048])
+def test_cuda_detect_matches_plain_per_octave(cuda_device, size):
+    """Each octave of each image (two views and the seed) of a benchmark
+    scene, at its detection capacity and with the border check: the
+    kernels' slots equal the plain chain's."""
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features import sift
+    from ssrlcv_tpu_torch.features.scale_space import build_scale_space
+
+    params = SIFTParams()
+    for k, px in enumerate(_scene_pixels(size, cuda_device)):
+        octaves = build_scale_space(torch.from_numpy(px).to(cuda_device), params, size, size)
+        for o, octave in enumerate(octaves):
+            cap = sift.octave_capacity(params, o, size, size)
+            plain, dropped = _detect_pair(octave, _octave_sigmas(params, o), params, cap,
+                                          octave.pixel_width)
+            print(f"[detect] {size}^2 image {k} octave {o}: {cap} slots, "
+                  f"{int(plain.mask.sum())} keypoints kept, {dropped} extrema dropped")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1024, 2048])
+def test_cuda_detect_generate_features_matches_plain(cuda_device, size, monkeypatch):
+    """Whole generate_features calls on the views and the seed image of a
+    benchmark scene: the FeatureSet of the detection kernels equals, field
+    by field and byte for byte, the one of the plain chain, and so do the
+    counters of features and drops."""
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features import detector as D
+    from ssrlcv_tpu_torch.features import sift
+    from ssrlcv_tpu_torch.features.detect_kernel import detect_keypoints
+
+    def plain(dog_raw, dog_norm, sigmas, params, capacity, pixel_width):
+        kps = D.find_keypoints_octave_plain(dog_raw, dog_norm, sigmas, params, capacity)
+        return D.check_descriptor_border(kps, tuple(dog_raw.shape[1:]),
+                                         params.descriptor_contrib_width, pixel_width)
+
+    params = SIFTParams(max_keypoints=196608 if size == 2048 else 65536)
+    for k, px in enumerate(_scene_pixels(size, cuda_device)):
+        n = detect_keypoints.launches
+        counts = (sift.generate_features.features, sift.generate_features.dropped)
+        got = sift.generate_features(px, params, image_id=k, device=cuda_device)
+        assert detect_keypoints.launches == n + 2 * params.num_octaves
+        got_counts = (sift.generate_features.features - counts[0],
+                      sift.generate_features.dropped - counts[1])
+        with monkeypatch.context() as m:
+            m.setattr(sift, "find_keypoints_octave", plain)
+            counts = (sift.generate_features.features, sift.generate_features.dropped)
+            want = sift.generate_features(px, params, image_id=k, device=cuda_device)
+            want_counts = (sift.generate_features.features - counts[0],
+                           sift.generate_features.dropped - counts[1])
+        assert detect_keypoints.launches == n + 2 * params.num_octaves
+        for name in ("loc", "sigma", "theta", "descriptors", "mask", "parent"):
+            assert _same_bytes(getattr(got, name), getattr(want, name)), f"image {k}: {name}"
+        assert got_counts == want_counts
+        print(f"[detect] {size}^2 image {k}: {got.count()} features equal, "
+              f"{got_counts[1]} dropped")
+
+
+@pytest.mark.cuda
+def test_cuda_detect_capacity_below_the_extrema(cuda_device):
+    """A capacity under the extrema an octave finds: the kernels keep the
+    same first slots as the plain chain and count the same drops."""
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features.scale_space import build_scale_space
+
+    params = SIFTParams()
+    px = _scene_pixels(1024, cuda_device)[0]
+    octaves = build_scale_space(torch.from_numpy(px).to(cuda_device), params, 1024, 1024)
+    for o, cap in ((0, 1000), (1, 3000), (3, 50)):
+        plain, dropped = _detect_pair(octaves[o], _octave_sigmas(params, o), params, cap,
+                                      octaves[o].pixel_width)
+        assert dropped > 0, f"octave {o} found no more than {cap} extrema"
+        print(f"[detect] capacity {cap} at octave {o}: {dropped} extrema dropped, "
+              f"{int(plain.mask.sum())} kept")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["default", "no_subpixel", "one_attempt", "no_prefilter"])
+def test_cuda_detect_small_images_reach_the_border_tests(cuda_device, variant):
+    """Small noise images, whose extrema lie near the borders: the plain
+    chain's descriptor-border check rejects some of them, and refinement
+    moves some off the pixel grid; the kernels agree slot for slot, under
+    the default parameters and three others.  A constant image (its DoG
+    NaN) finds nothing on either side."""
+    import dataclasses
+
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features import detector as D
+    from ssrlcv_tpu_torch.features.scale_space import build_scale_space
+
+    params = dataclasses.replace(SIFTParams(), **{
+        "default": {}, "no_subpixel": {"subpixel": False},
+        "one_attempt": {"max_refine_attempts": 1}, "no_prefilter": {"noise_threshold": 0.0},
+    }[variant])
+    rng = np.random.default_rng(DETECT_SEED)
+    rejected = moved = 0
+    for h, w in ((40, 56), (64, 64), (96, 40)):
+        px = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8)).to(cuda_device)
+        for o, octave in enumerate(build_scale_space(px, params, h, w)):
+            sigmas = _octave_sigmas(params, o)
+            plain, _ = _detect_pair(octave, sigmas, params, 4096, octave.pixel_width)
+            inner = D.find_keypoints_octave_plain(octave.dog_raw, octave.dog_norm, sigmas,
+                                                  params, 4096)
+            rejected += int((inner.mask & ~plain.mask).sum())
+            moved += int((inner.loc != torch.round(inner.loc)).any(dim=1).sum())
+            _detect_pair(octave, sigmas, params, 4096, None)
+    assert rejected > 0
+    if params.subpixel:
+        assert moved > 0
+    flat = torch.full((40, 40), 7, dtype=torch.uint8, device=cuda_device)
+    octave = build_scale_space(flat, params, 40, 40)[0]
+    plain, _ = _detect_pair(octave, _octave_sigmas(params, 0), params, 256, octave.pixel_width)
+    assert not plain.mask.any()
+    print(f"[detect] small images, {variant}: {rejected} keypoints rejected by the border "
+          f"check, {moved} refined off the pixel grid")

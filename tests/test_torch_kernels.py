@@ -467,3 +467,119 @@ def test_blur_wrapper_argument_checks():
     T.convolve_separable_symmetric(img, np.ones(T.BLUR_MAX_TAPS, np.float32))
     with pytest.raises(ValueError, match="unsupported device"):
         T.convolve_separable_symmetric(img.to("meta"), taps)
+
+
+def _extrema_restatement(dog: np.ndarray, thr: float) -> np.ndarray:
+    """csrc/detect.cu's extrema rule in numpy, as its kernel walks the
+    slices: each slice's 3x3 maximum, minimum and NaN flag, then for slice
+    b in 1..D-2 the flag (no NaN in the three slices' windows) and (v >= the
+    three maxima or v <= the three minima) and |v| >= thr.  Flat interior
+    indices, in order."""
+    d, h, w = dog.shape
+    win = np.lib.stride_tricks.sliding_window_view(dog, (3, 3), axis=(1, 2))
+    mx = np.where(np.isnan(win), -np.inf, win).max(axis=(3, 4))
+    mn = np.where(np.isnan(win), np.inf, win).min(axis=(3, 4))
+    nan = np.isnan(win).any(axis=(3, 4))
+    v = dog[1:-1, 1:-1, 1:-1]
+    with np.errstate(invalid="ignore"):
+        ext = (~(nan[:-2] | nan[1:-1] | nan[2:])
+               & ((v >= np.maximum(np.maximum(mx[:-2], mx[1:-1]), mx[2:]))
+                  | (v <= np.minimum(np.minimum(mn[:-2], mn[1:-1]), mn[2:])))
+               & (np.abs(v) >= np.float32(thr)))
+    return np.flatnonzero(ext)
+
+
+@pytest.mark.parametrize("case", ["random", "plateaus", "nan", "signed_zeros"])
+def test_detect_extrema_rule_equals_the_max_min_form(case):
+    """The detection kernel's extrema rule (``_extrema_restatement``) keeps
+    exactly the extrema of ``detect_extrema``'s 3x3x3 torch.maximum /
+    torch.minimum form, in its order: ties (plateaus of equal values) count,
+    a NaN anywhere in the window clears the flag, -0.0 equals 0.0."""
+    from ssrlcv_tpu_torch.features.detector import detect_extrema
+
+    rng = np.random.default_rng(["random", "plateaus", "nan", "signed_zeros"].index(case))
+    dog = rng.standard_normal((5, 23, 31)).astype(np.float32) * 0.05
+    if case == "plateaus":
+        dog = np.round(dog * 40).astype(np.float32) / 40
+    elif case == "nan":
+        dog[rng.random(dog.shape) < 0.02] = np.nan
+    elif case == "signed_zeros":
+        dog = np.round(dog * 10).astype(np.float32) / 10
+        dog[rng.random(dog.shape) < 0.5] *= -1.0
+    for thr in (0.0, 0.008):
+        kps = detect_extrema(torch.from_numpy(dog), (1.0,) * 5, dog.size, prefilter_threshold=thr)
+        per = 21 * 29
+        idx = ((kps.blur[kps.mask] - 1) * per + (kps.loc[kps.mask, 1].long() - 1) * 29
+               + kps.loc[kps.mask, 0].long() - 1).numpy()
+        want = _extrema_restatement(dog, thr)
+        np.testing.assert_array_equal(idx, want)
+        assert len(want) > 0
+
+
+def test_detect_cpu_path_builds_nothing(monkeypatch):
+    """CPU tensors take the plain detection chain, with and without the
+    descriptor-border check and through generate_features: the kernel
+    library is never requested, no launch is counted, and the extrema past
+    the capacity are counted as before."""
+    from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features import detector as D
+    from ssrlcv_tpu_torch.features.detect_kernel import detect_keypoints
+    from ssrlcv_tpu_torch.features.scale_space import build_scale_space, octave_sigmas
+    from ssrlcv_tpu_torch.features.sift import generate_features
+
+    def no_build():
+        raise AssertionError("the kernel library was requested on the CPU path")
+
+    monkeypatch.setattr(_cuda, "library", no_build)
+    before = detect_keypoints.launches
+    params = SIFTParams()
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.integers(0, 256, (64, 64)).astype(np.uint8))
+    octave = build_scale_space(img, params, 64, 64)[0]
+    sigmas = tuple(octave_sigmas(params, 0))[: params.blurs_per_octave - 1]
+    args = (octave.dog_raw, octave.dog_norm, sigmas, params, 64)
+    dropped = D.detect_extrema.dropped
+    plain = D.find_keypoints_octave_plain(*args)
+    plain_dropped = D.detect_extrema.dropped - dropped
+    assert plain_dropped > 0
+    for pw, want in ((None, plain),
+                     (0.5, D.check_descriptor_border(plain, (128, 128), 6.0, 0.5))):
+        dropped = D.detect_extrema.dropped
+        got = D.find_keypoints_octave(*args, pixel_width=pw)
+        assert D.detect_extrema.dropped - dropped == plain_dropped
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert generate_features(img, params, device="cpu").count() > 0
+    assert detect_keypoints.launches == before
+
+
+def test_detect_wrapper_argument_checks(monkeypatch):
+    """The detection wrapper rejects DoG stacks that are not one float32
+    (D, H, W) shape, more slices than the kernel holds or too few sigmas,
+    and tensors that are not on a CUDA device, before it builds or
+    launches anything."""
+    from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.config import SIFTParams
+    from ssrlcv_tpu_torch.features.detect_kernel import MAX_SLICES, detect_keypoints
+
+    def no_build():
+        raise AssertionError("the kernel library was requested")
+
+    monkeypatch.setattr(_cuda, "library", no_build)
+    p = SIFTParams()
+    dog = torch.zeros((5, 16, 16))
+    sig = (1.0,) * 5
+    with pytest.raises(ValueError, match="one \\(D, H, W\\) shape"):
+        detect_keypoints(dog, dog[:4], sig, p, 128)
+    with pytest.raises(ValueError, match="one \\(D, H, W\\) shape"):
+        detect_keypoints(dog[0], dog[0], sig, p, 128)
+    with pytest.raises(TypeError):
+        detect_keypoints(dog.double(), dog.double(), sig, p, 128)
+    big = torch.zeros((MAX_SLICES + 1, 4, 4))
+    with pytest.raises(ValueError, match="DoG slices"):
+        detect_keypoints(big, big, (1.0,) * (MAX_SLICES + 1), p, 128)
+    with pytest.raises(ValueError, match="DoG slices"):
+        detect_keypoints(dog, dog, (1.0,) * 3, p, 128)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        detect_keypoints(dog, dog, sig, p, 128)
