@@ -6,8 +6,10 @@ library lives in ``build/ssrlcv_tpu_torch/`` beside the package and its name
 carries a hash of the sources and flags, so a stale library is never loaded.
 It is built at first use (nothing happens at import), once per process.
 
-Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises on a non-zero code.
+Every C entry point but one launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` raises on a non-zero code.  The exception,
+``ssrlcv_build_tracks`` (``csrc/tracks.cu``), is host code that launches
+nothing and returns its own code.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C signatures of the entry points (see csrc/*.cu)
 _SIGNATURES = {
     "ssrlcv_orient_hist": [_P, _P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _P, _P],
@@ -44,6 +47,7 @@ _SIGNATURES = {
     "ssrlcv_detect_extrema": [_P, _P, _I, _I, _I, _F, _P],
     "ssrlcv_detect_keypoints": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _F, _F,
                                 _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "ssrlcv_build_tracks": [_P, _P, _P, _I, _I, _L, _L, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -3,9 +3,11 @@
 Counterpart of ``ssrlcv_tpu/matching/tracks.py``.  Every image pair is
 matched on the features' device (the constrained K3 pass, or brute force)
 with the index-only family's unsquared relative-seed threshold; the
-transitive-chain track assembly is host Python over ints, a line-for-line
-transliteration of the JAX package's (and so of the reference's), with its
-quirks:
+transitive-chain track assembly runs on the host, a line-for-line
+transliteration of the JAX package's (and so of the reference's): in Python
+over ints for CPU features (``build_tracks``), in the native library for
+CUDA features (``build_track_slots``, ``csrc/tracks.cu``, the same tracks in
+the same order).  Its quirks:
 
   * adjacency entries are sorted by (image, feature): the pair loop emits
     them in target-image order;
@@ -18,6 +20,8 @@ quirks:
 Spans (``logger.span``): ``tracks.sweep`` (the windowed pair sweep), each
 ``tracks.fetch`` (a host read of a pair's matches), ``tracks.build`` (the
 track assembly, a logged phase) and ``tracks.assemble`` (the MatchSet).
+Counters: ``generate_matches_exhaustive.calls`` and ``.native_calls`` (the
+calls whose tracks the native builder made).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ssrlcv_tpu_torch.config import MatchParams
 from ssrlcv_tpu_torch.logging import logger
@@ -177,6 +182,48 @@ def build_tracks(pair_matches: dict, num_images: int, feature_counts: list) -> l
     return tracks
 
 
+def track_slots(tracks: list) -> np.ndarray:
+    """A track list as (S, 4) int64 rows (track, slot, image, feature),
+    tracks in order and each track's slots in order."""
+    return np.array([(k, s, img, feat) for k, tr in enumerate(tracks)
+                     for s, (img, feat) in enumerate(tr)], np.int64).reshape(-1, 4)
+
+
+def build_track_slots(pair_matches: dict, num_images: int, feature_counts: list):
+    """``build_tracks`` in the native library (``csrc/tracks.cu``): returns
+    (``track_slots(build_tracks(...))``, the number of tracks), equal to
+    them.  ``pair_matches`` as ``build_tracks`` takes it, each value an
+    (n, 2) int64 array.  Host work only: no launch, no device memory."""
+    from ssrlcv_tpu_torch import _cuda
+
+    stride = max(feature_counts) + 1 if feature_counts else 1
+    keys = sorted(pair_matches)
+    for i, j in keys:
+        if not 0 <= i < j < num_images:
+            raise ValueError(f"pair ({i}, {j}) is not an image pair i < j < {num_images}")
+    rows = [pair_matches[k] for k in keys]
+    for k, r in zip(keys, rows):
+        if not isinstance(r, np.ndarray) or r.dtype != np.int64:
+            raise TypeError(f"pair {k}: matches must be an int64 numpy array, got "
+                            f"{getattr(r, 'dtype', type(r))}")
+        if r.ndim != 2 or r.shape[1] != 2:
+            raise ValueError(f"pair {k}: matches must be (n, 2), got {r.shape}")
+    flat = np.ascontiguousarray(np.concatenate(rows) if rows else np.zeros((0, 2), np.int64))
+    if flat.size and (flat.min() < 0 or flat.max() >= stride):
+        raise ValueError(f"feature indices must lie in [0, {stride}), got "
+                         f"[{flat.min()}, {flat.max()}]")
+    ij = np.array(keys, np.int64).reshape(-1, 2)
+    start = np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int64)
+    slots = np.empty((max(2 * len(flat), 1), 4), np.int64)
+    counts = np.zeros(2, np.int64)
+    rc = _cuda.library().ssrlcv_build_tracks(
+        ij.ctypes.data, start.ctypes.data, flat.ctypes.data, len(keys), num_images, stride,
+        len(slots), slots.ctypes.data, counts.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"ssrlcv_build_tracks refused its input ({rc})")
+    return slots[:counts[1]], int(counts[0])
+
+
 def generate_matches_exhaustive(features: list, cameras: Cameras, params: MatchParams,
                                 seed_features: Optional[FeatureSet] = None,
                                 ordered: bool = False,
@@ -188,28 +235,41 @@ def generate_matches_exhaustive(features: list, cameras: Cameras, params: MatchP
     pair_matches = pairwise_index_matches(features, cameras, params, seed_features,
                                           ordered=ordered, estimated_overlap=estimated_overlap,
                                           mesh=mesh)
+    generate_matches_exhaustive.calls += 1
+    counts = [f.capacity for f in features]
     with logger.phase("tracks.build"):
-        tracks = build_tracks(pair_matches, len(features), [f.capacity for f in features])
+        if features[0].loc.device.type == "cuda":
+            slots, t = build_track_slots(pair_matches, len(features), counts)
+            generate_matches_exhaustive.native_calls += 1
+        else:
+            tracks = build_tracks(pair_matches, len(features), counts)
+            slots, t = track_slots(tracks), len(tracks)
     with logger.span("tracks.assemble"):
-        return _matchset(tracks, features)
+        return _matchset(slots, t, features)
 
 
-def _matchset(tracks: list, features: list) -> MatchSet:
-    """The tracks as a padded MatchSet on the features' device."""
-    locs = [f.loc.cpu().numpy() for f in features]
-    t = len(tracks)
-    v = max((len(tr) for tr in tracks), default=2)
-    cap = max(((t + 127) // 128) * 128, 128)
-    kp_loc = np.zeros((cap, v, 2), np.float32)
-    kp_par = np.full((cap, v), -1, np.int32)
-    nviews = np.zeros(cap, np.int32)
-    slots = np.array([(k, s, img, feat) for k, tr in enumerate(tracks)
-                      for s, (img, feat) in enumerate(tr)], np.int64).reshape(-1, 4)
+generate_matches_exhaustive.calls = 0
+generate_matches_exhaustive.native_calls = 0
+
+
+def _matchset(slots: np.ndarray, num_tracks: int, features: list) -> MatchSet:
+    """Slot rows (track, slot, image, feature) of ``num_tracks`` tracks as a
+    padded MatchSet on the features' device, each keypoint's location
+    gathered there from its image's ``loc``."""
+    dev = features[0].loc.device
+    t = num_tracks
     k, s, img, feat = slots.T
-    for i, loc in enumerate(locs):
-        sel = img == i
-        kp_loc[k[sel], s[sel]] = loc[feat[sel]]
+    lengths = np.bincount(k, minlength=t)
+    v = int(lengths.max()) if t else 2
+    cap = max(((t + 127) // 128) * 128, 128)
+    base = np.cumsum([0] + [f.capacity for f in features[:-1]])
+    src = torch.from_numpy(base[img] + feat).to(dev)
+    kp_loc = torch.zeros((cap * v, 2), dtype=torch.float32, device=dev)
+    kp_loc[torch.from_numpy(k * v + s).to(dev)] = torch.cat([f.loc for f in features])[src]
+    kp_par = np.full((cap, v), -1, np.int32)
     kp_par[k, s] = img
-    nviews[:t] = [len(tr) for tr in tracks]
-    return MatchSet.from_numpy(device=features[0].loc.device, kp_loc=kp_loc, kp_parent=kp_par,
-                               num_views=nviews, mask=np.arange(cap) < t)
+    nviews = np.zeros(cap, np.int32)
+    nviews[:t] = lengths
+    return MatchSet(kp_loc=kp_loc.view(cap, v, 2), kp_parent=torch.from_numpy(kp_par).to(dev),
+                    num_views=torch.from_numpy(nviews).to(dev),
+                    mask=torch.from_numpy(np.arange(cap) < t).to(dev))

@@ -1458,3 +1458,155 @@ def test_cuda_detect_small_images_reach_the_border_tests(cuda_device, variant):
     assert not plain.mask.any()
     print(f"[detect] small images, {variant}: {rejected} keypoints rejected by the border "
           f"check, {moved} refined off the pixel grid")
+
+
+# --- N-view track assembly: the native builder (csrc/tracks.cu) ---
+
+HAND_BUILT_GRAPH = ({(0, 1): np.array([[0, 5], [1, 6], [2, 7]], np.int64),
+                     (0, 2): np.array([[0, 9], [2, 11]], np.int64),
+                     (1, 2): np.array([[5, 9], [6, 10], [7, 12]], np.int64)}, 3, [16, 16, 16])
+TRACK_GRAPHS = [(101, 3, False), (102, 4, False), (103, 5, False), (104, 6, False),
+                (105, 4, True), (106, 5, True), (107, 6, True), (108, 3, False)]
+
+
+def _track_graph(seed, n_img, ordered=False):
+    """Pair matches of ``n_img`` images with the cases the builder must get
+    right: points seen in several images (whole chains), targets drawn from
+    a small pool (two roots hitting one hop, so an earlier root of the same
+    image clears a hop a later one reaches), targets swapped at random (chains
+    that fail the subset check), some pairs empty, rows out of query order,
+    feature counts that differ by image, and with ``ordered`` only the pairs
+    of an ordered capture at 50 % overlap."""
+    from ssrlcv_tpu_torch.matching.tracks import overlap_pairs
+
+    rng = np.random.default_rng(seed)
+    counts = [int(c) for c in rng.integers(40, 90, n_img)]
+    points = [{i: int(rng.integers(0, counts[i])) for i in range(n_img) if rng.random() < 0.7}
+              for _ in range(60)]
+    out = {}
+    for i, j in overlap_pairs(n_img, ordered, 0.5 if ordered else 0.0):
+        rows = {p[i]: p[j] for p in points if i in p and j in p}
+        pool = int(rng.integers(3, 12))
+        for q in rng.choice(counts[i], int(rng.integers(0, 25)), replace=False):
+            rows[int(q)] = int(rng.integers(0, min(pool, counts[j])))
+        for q in list(rows):
+            if rng.random() < 0.1:
+                rows[q] = int(rng.integers(0, counts[j]))
+        if rng.random() < 0.15:
+            rows = {}
+        arr = np.array(sorted(rows.items()), np.int64).reshape(-1, 2)
+        out[(i, j)] = arr[rng.permutation(len(arr))] if rng.random() < 0.3 else arr
+    return out, n_img, counts
+
+
+def _matchset_restated(tracks, locs, device):
+    """The padded MatchSet of a track list, slot by slot in Python (the
+    assembly as it was written before it took slot rows)."""
+    from ssrlcv_tpu_torch.core.types import MatchSet
+
+    t = len(tracks)
+    v = max((len(tr) for tr in tracks), default=2)
+    cap = max(((t + 127) // 128) * 128, 128)
+    kp_loc = np.zeros((cap, v, 2), np.float32)
+    kp_par = np.full((cap, v), -1, np.int32)
+    nviews = np.zeros(cap, np.int32)
+    for k, tr in enumerate(tracks):
+        for s, (img, feat) in enumerate(tr):
+            kp_loc[k, s] = locs[img][feat]
+            kp_par[k, s] = img
+        nviews[k] = len(tr)
+    return MatchSet.from_numpy(device=device, kp_loc=kp_loc, kp_parent=kp_par, num_views=nviews,
+                               mask=np.arange(cap) < t)
+
+
+def _track_locs(counts, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-1.0, 1024.0, (c, 2)).astype(np.float32) for c in counts]
+
+
+def _same_matchset(got, want):
+    for name in ("kp_loc", "kp_parent", "num_views", "mask"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(), name
+
+
+def _native_tracks_equal(graph, device):
+    """The native builder's slot rows and MatchSet on ``device`` against the
+    Python builder's tracks, byte for byte; returns the tracks."""
+    from ssrlcv_tpu_torch.core.types import FeatureSet
+    from ssrlcv_tpu_torch.matching import tracks as TR
+
+    pm, n, counts = graph
+    tracks = TR.build_tracks(pm, n, counts)
+    slots, t = TR.build_track_slots(pm, n, counts)
+    want = TR.track_slots(tracks)
+    assert t == len(tracks)
+    assert slots.dtype == want.dtype and slots.shape == want.shape
+    assert slots.tobytes() == want.tobytes()
+    locs = _track_locs(counts)
+    feats = []
+    for loc in locs:
+        f = FeatureSet.empty(len(loc), device=device)
+        f.loc.copy_(torch.from_numpy(loc))
+        feats.append(f)
+    _same_matchset(TR._matchset(slots, t, feats), _matchset_restated(tracks, locs, device))
+    return tracks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_img,ordered", TRACK_GRAPHS)
+def test_cuda_native_tracks_match_python(cuda_device, seed, n_img, ordered):
+    """Seeded graphs of 3 to 6 images: the native builder's tracks and the
+    MatchSet assembled from them equal the Python builder's byte for byte."""
+    assert _native_tracks_equal(_track_graph(seed, n_img, ordered), cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_native_tracks_hand_built_graph(cuda_device):
+    """The hand-built 3-image graph of tests/test_torch_nview.py, and no
+    pairs at all."""
+    assert _native_tracks_equal(HAND_BUILT_GRAPH, cuda_device) == [[(0, 0), (1, 5), (2, 9)]]
+    assert _native_tracks_equal(({}, 3, [16, 16, 16]), cuda_device) == []
+
+
+@pytest.mark.cuda
+def test_cuda_native_tracks_benchmark_scene(cuda_device, tmp_path):
+    """The three views of a benchmark scene at 1024^2 through the real
+    sweep: the native builder's tracks and ``generate_matches_exhaustive``'s
+    MatchSet equal the Python builder's byte for byte, and the counters say
+    the native builder made them."""
+    import json
+    import os
+
+    from benchmark.harness import Program
+    from benchmark.scene import make_scene
+    from ssrlcv_tpu_torch.io.images import cameras_from_refimages
+    from ssrlcv_tpu_torch.matching import tracks as TR
+    from ssrlcv_tpu_torch.pipeline import stages as T
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "triple3v.json")) as f:
+        program = Program(json.load(f), cuda_device)
+    cfg = program.config.replace(output_dir=str(tmp_path))
+    scene = make_scene(2147483999, 1024, 3, cuda_device)
+    images = program.images(scene.views)
+    state = T.PipelineState(config=cfg, images=images, device=cuda_device)
+    seed = program._sift(scene.seed.pixels, cfg.sift, -1, device=cuda_device)
+    feats = T.do_feature_generation(state).features
+    cams = cameras_from_refimages(images, cuda_device)
+    pm = TR.pairwise_index_matches(feats, cams, cfg.match, seed)
+    counts = [f.capacity for f in feats]
+    tracks = TR.build_tracks(pm, 3, counts)
+    slots, t = TR.build_track_slots(pm, 3, counts)
+    assert t == len(tracks) > 10000
+    assert slots.tobytes() == TR.track_slots(tracks).tobytes()
+    calls, native = TR.generate_matches_exhaustive.calls, TR.generate_matches_exhaustive.native_calls
+    got = TR.generate_matches_exhaustive(feats, cams, cfg.match, seed_features=seed)
+    assert TR.generate_matches_exhaustive.calls == calls + 1
+    assert TR.generate_matches_exhaustive.native_calls == native + 1
+    _same_matchset(got, _matchset_restated(tracks, [f.loc.cpu().numpy() for f in feats],
+                                           cuda_device))
+    nv = got.num_views.cpu().numpy()[:t]
+    print(f"[tracks] 1024^2 scene: {sum(len(p) for p in pm.values())} matches, {t} tracks "
+          f"({(nv == 3).sum()} of 3 views), equal byte for byte")

@@ -4,7 +4,8 @@ Same numpy-seeded inputs through ssrlcv_tpu and ssrlcv_tpu_torch: N-view
 triangulation and the N-view filter on a 3-view rig made from the synthetic
 scene's cameras, track building on a hand-built and a random graph,
 exhaustive matching on identical features of the 256x256 3-view scene, and
-N-view bundle adjustment.
+N-view bundle adjustment.  Besides, the MatchSet assembly from slot rows and
+the native track builder's argument checks, which need no card.
 """
 
 import dataclasses
@@ -13,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_cuda import (HAND_BUILT_GRAPH, TRACK_GRAPHS, _matchset_restated, _same_matchset,
+                             _track_graph, _track_locs)
 
 torch.set_num_threads(2)
 
@@ -223,6 +226,101 @@ def test_generate_matches_exhaustive_matches_jax(scene3_features):
         np.testing.assert_array_equal(getattr(tm, k).numpy(), np.asarray(getattr(jm, k)), k)
     nv = tm.num_views.numpy()[tm.mask.numpy()]
     assert tm.count() > 500 and (nv == 3).sum() > 100 and (nv == 2).sum() > 100
+
+
+def _no_library():
+    raise AssertionError("the kernel library was asked for")
+
+
+def test_generate_matches_exhaustive_cpu_takes_the_python_builder(scene3_features, monkeypatch):
+    """CPU features: no library is built, the MatchSet is the Python
+    builder's tracks assembled slot by slot, and the counters count a call
+    and no native call."""
+    from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.config import MatchParams
+    from ssrlcv_tpu_torch.core.types import Cameras, FeatureSet
+    from ssrlcv_tpu_torch.matching import tracks as TR
+
+    monkeypatch.setattr(_cuda, "library", _no_library)
+    feats, seed, cams = scene3_features
+    tf = [_port(f, FeatureSet) for f in feats]
+    tc, ts = _port(cams, Cameras), _port(seed, FeatureSet)
+    mp = MatchParams(epsilon=25.0, delta=5.0)
+    calls, native = TR.generate_matches_exhaustive.calls, TR.generate_matches_exhaustive.native_calls
+    got = TR.generate_matches_exhaustive(tf, tc, mp, seed_features=ts)
+    assert TR.generate_matches_exhaustive.calls == calls + 1
+    assert TR.generate_matches_exhaustive.native_calls == native
+    tracks = TR.build_tracks(TR.pairwise_index_matches(tf, tc, mp, ts), 3,
+                             [f.capacity for f in tf])
+    _same_matchset(got, _matchset_restated(tracks, [f.loc.numpy() for f in tf], "cpu"))
+
+
+FIXED_GRAPHS = {"hand_built": HAND_BUILT_GRAPH, "empty": ({}, 3, [16, 16, 16])}
+
+
+@pytest.mark.parametrize("case", list(FIXED_GRAPHS) + TRACK_GRAPHS)
+def test_matchset_from_slot_rows_equals_restatement(case):
+    """``_matchset`` over ``track_slots`` of the Python builder's tracks
+    equals the slot-by-slot assembly, byte for byte, on the card tests'
+    graphs."""
+    from ssrlcv_tpu_torch.core.types import FeatureSet
+    from ssrlcv_tpu_torch.matching import tracks as TR
+
+    pm, n, counts = FIXED_GRAPHS[case] if case in FIXED_GRAPHS else _track_graph(*case)
+    tracks = TR.build_tracks(pm, n, counts)
+    locs = _track_locs(counts)
+    feats = [FeatureSet.empty(len(loc)) for loc in locs]
+    for f, loc in zip(feats, locs):
+        f.loc.copy_(torch.from_numpy(loc))
+    got = TR._matchset(TR.track_slots(tracks), len(tracks), feats)
+    _same_matchset(got, _matchset_restated(tracks, locs, "cpu"))
+
+
+def test_track_graphs_hold_their_cases():
+    """The card tests' graphs hold what they are said to: empty pairs,
+    ordered-overlap pair subsets, two roots hitting one hop, roots with
+    matches and no track (chains that fail the subset check), and tracks
+    whose first hop an earlier root of the same image consumed."""
+    from ssrlcv_tpu_torch.matching import tracks as TR
+
+    empty = ordered_subsets = shared = no_track = consumed = 0
+    for seed, n, ordered in TRACK_GRAPHS:
+        pm, _, counts = _track_graph(seed, n, ordered)
+        empty += sum(len(r) == 0 for r in pm.values())
+        ordered_subsets += ordered and len(pm) < n * (n - 1) // 2
+        tracks = TR.build_tracks(pm, n, counts)
+        for (i, j), rows in pm.items():
+            shared += len(np.unique(rows[:, 1])) < len(rows)
+        roots = {tr[0] for tr in tracks}
+        members = {hop for tr in tracks for hop in tr[1:]}
+        no_track += sum((i, int(q)) not in roots and (i, int(q)) not in members
+                        for (i, j), rows in pm.items() if i < n - 2 for q in rows[:, 0])
+        seen = set()
+        for tr in tracks:
+            consumed += (tr[0][0], tr[1]) in seen
+            seen.update((tr[0][0], hop) for hop in tr[1:-1] if hop[0] != n - 1)
+    assert empty and ordered_subsets and shared and no_track and consumed, \
+        (empty, ordered_subsets, shared, no_track, consumed)
+
+
+def test_build_track_slots_refuses_bad_arguments(monkeypatch):
+    """The native builder's checks raise before the C call: wrong dtypes,
+    shapes, image pairs and feature indices."""
+    from ssrlcv_tpu_torch import _cuda
+    from ssrlcv_tpu_torch.matching.tracks import build_track_slots
+
+    monkeypatch.setattr(_cuda, "library", _no_library)
+    ok = np.array([[0, 1], [2, 3]], np.int64)
+    for bad, err in ((ok.astype(np.int32), TypeError), (ok.tolist(), TypeError),
+                     (ok.astype(np.float64), TypeError), (ok[:, :1], ValueError),
+                     (ok.ravel(), ValueError), (np.zeros((2, 3), np.int64), ValueError),
+                     (np.array([[0, 17]], np.int64), ValueError),
+                     (np.array([[-1, 0]], np.int64), ValueError)):
+        with pytest.raises(err):
+            build_track_slots({(0, 1): ok, (0, 2): bad}, 3, [16, 16, 16])
+    for pair in ((1, 0), (0, 3), (-1, 1), (1, 1)):
+        with pytest.raises(ValueError, match="image pair"):
+            build_track_slots({pair: ok}, 3, [16, 16, 16])
 
 
 def test_match_index_only_threshold_matches_jax(scene3_features):
